@@ -1,0 +1,95 @@
+"""Model configuration dataclass (a copy of ``repro.configs.base``).
+
+The port keeps its own copy so that it imports nothing of the JAX
+package; the field names and defaults are the reference's, so a config
+built on either side describes the same model.  ``reduced()`` derives
+the CPU-test variant (same family and wiring, tiny dims).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+__all__ = ["ModelConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid
+    n_layers: int
+    d_model: int
+    n_heads: int                   # 0 for attention-free
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0              # 0 -> d_model // n_heads
+    # --- attention flavour
+    qkv_bias: bool = False
+    attn_logit_softcap: float = 0.0
+    rope_theta: float = 10000.0
+    rope_kind: str = "default"     # default | mrope
+    # --- ffn flavour
+    ffn_kind: str = "swiglu"       # swiglu | geglu | gelu
+    out_bias: bool = False
+    tie_embeddings: bool = False
+    # --- MoE
+    n_experts: int = 0
+    experts_per_tok: int = 0
+    moe_d_ff: int = 0
+    shared_experts: int = 0
+    dense_residual: bool = False
+    moe_every: int = 1
+    capacity_factor: float = 1.25
+    # --- hybrid / ssm
+    attn_every: int = 0
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    rwkv_head_dim: int = 64
+    # --- modality frontend
+    frontend: str = "none"         # none | audio | vision
+    n_patches: int = 0
+    # --- numerics
+    dtype: str = "bfloat16"
+    remat: str = "full"
+    scan_layers: bool = True
+    seq_chunk: int = 1024          # prefill attention kv/q chunking
+    ssm_chunk: int = 64
+    attn_impl: str = "scan"        # scan (online softmax over kv chunks)
+    attn_scores_f32: bool = True
+    decode_impl: str = "blocked"   # read by the reference only: the port
+                                   # picks the decode kernel by device
+    sub_quadratic: bool = False
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
+    def reduced(self) -> "ModelConfig":
+        """Tiny same-family variant for CPU tests."""
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=min(self.n_layers, 2 if self.attn_every == 0 else
+                         max(2, self.attn_every)),
+            d_model=128,
+            n_heads=min(self.n_heads, 4) if self.n_heads else 0,
+            n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else 0,
+            head_dim=32 if self.n_heads else 0,
+            d_ff=256,
+            vocab=512,
+            n_experts=min(self.n_experts, 4),
+            experts_per_tok=min(self.experts_per_tok, 2),
+            moe_d_ff=64 if self.moe_d_ff else 0,
+            shared_experts=min(self.shared_experts, 1),
+            mamba_d_state=8,
+            rwkv_head_dim=32,
+            n_patches=min(self.n_patches, 8),
+            seq_chunk=32,
+            ssm_chunk=8,
+            remat="none",
+        )

@@ -1,0 +1,88 @@
+"""Codec registry -- the single dispatch point of the packed-weight data
+plane (the counterpart of ``repro.core.codec``).
+
+A ``Codec`` owns encode (float -> int32 codes) and decode (codes ->
+float; NaR/NaN codes -> 0.0, the hardware exception path).  As in
+the reference, the codec -- never its caller -- picks the table path for
+tensors of at most ``_TABLE_MAX_ELEMS`` elements and the branch-free
+path above that; the two are equal code for code.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, Type
+
+import torch
+
+from . import formats as fmt
+from .formats import FormatSpec
+
+__all__ = ["Codec", "get_codec", "register_codec", "encode", "decode"]
+
+_REGISTRY: Dict[str, Type["Codec"]] = {}
+
+_TABLE_MAX_ELEMS = 1 << 16
+
+
+def register_codec(kind: str) -> Callable[[Type["Codec"]], Type["Codec"]]:
+    """Class decorator: route ``FormatSpec.kind == kind`` to this codec."""
+    def deco(cls: Type["Codec"]) -> Type["Codec"]:
+        _REGISTRY[kind] = cls
+        return cls
+    return deco
+
+
+@functools.lru_cache(maxsize=None)
+def get_codec(spec: FormatSpec) -> "Codec":
+    try:
+        cls = _REGISTRY[spec.kind]
+    except KeyError:
+        raise ValueError(f"no codec registered for format kind {spec.kind!r}"
+                         ) from None
+    return cls(spec)
+
+
+class Codec:
+    """encode/decode for one ``FormatSpec`` of a code-table kind."""
+
+    def __init__(self, spec: FormatSpec):
+        self.spec = spec
+
+    @staticmethod
+    def _prefer_table(x: torch.Tensor) -> bool:
+        return x.numel() <= _TABLE_MAX_ELEMS
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        if self._prefer_table(x):
+            return fmt.encode_table(self.spec, x)
+        return fmt.encode_bits(self.spec, x)
+
+    def decode(self, codes: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+        if self._prefer_table(codes):
+            return fmt.decode_table(self.spec, codes, dtype)
+        return fmt.decode_bits(self.spec, codes, dtype)
+
+
+for _kind in ("posit", "minifloat", "fixed"):
+    register_codec(_kind)(Codec)
+
+
+@register_codec("native")
+class NativeCodec(Codec):
+    """Native dtypes: encode/decode are casts, no code table."""
+
+    def encode(self, x):
+        return x.to(fmt.torch_dtype(self.spec.dtype))
+
+    def decode(self, codes, dtype=torch.float32):
+        return codes.to(dtype)
+
+
+def encode(spec: FormatSpec, x: torch.Tensor) -> torch.Tensor:
+    return get_codec(spec).encode(x)
+
+
+def decode(spec: FormatSpec, codes: torch.Tensor,
+           dtype=torch.float32) -> torch.Tensor:
+    return get_codec(spec).decode(codes, dtype)

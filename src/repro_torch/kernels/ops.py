@@ -1,0 +1,129 @@
+"""The packed-weight data plane (the counterpart of ``repro.kernels.ops``).
+
+``PackedTensor`` holds a weight as packed low-bit codes plus dequant
+scales and a block mask, with the reference's fields and layout version:
+
+  words  : (L..., Kp, Np/per) int32 -- the uint32 words of the reference,
+           same bits
+  scales : (L..., G, Np) f32 -- G = 1 per channel, else one row per K-group
+  mask   : (L..., Kp/bk, Np/bn) int32 nonzero-block map
+  shape  : logical (K, N) of one 2-D slice
+
+``pack_tensor`` has the reference's two branches: a 2-D weight is padded
+to the kernel blocks of ``default_blocks`` with a per-block mask; a
+stacked (L, K, N) weight pads K to the group and N to the word, with one
+gate per slice.  ``packed_matmul`` runs the RMMEC kernel on either.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..core import codec as codec_mod
+from ..core import quant
+from ..core.formats import FormatSpec
+from ..core.packing import lanes_per_word, pack, unpack
+from .rmmec_matmul import default_blocks, rmmec_matmul
+
+__all__ = ["PackedTensor", "pack_tensor", "to_dense", "packed_matmul",
+           "PACKED_TENSOR_VERSION"]
+
+PACKED_TENSOR_VERSION = 2
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+@dataclasses.dataclass
+class PackedTensor:
+    """A weight stored as packed low-bit codes + dequant scales."""
+
+    words: torch.Tensor
+    scales: torch.Tensor
+    mask: torch.Tensor
+    shape: Tuple[int, int]
+    spec: FormatSpec
+    group: Optional[int] = None
+    version: int = PACKED_TENSOR_VERSION
+
+    def __getitem__(self, i: int) -> "PackedTensor":
+        """Slice ``i`` of a stacked tensor (the layer loop's view)."""
+        return dataclasses.replace(self, words=self.words[i],
+                                   scales=self.scales[i], mask=self.mask[i])
+
+    def to(self, device) -> "PackedTensor":
+        return dataclasses.replace(self, words=self.words.to(device),
+                                   scales=self.scales.to(device),
+                                   mask=self.mask.to(device))
+
+
+def pack_tensor(spec: FormatSpec, w: torch.Tensor,
+                group_size: Optional[int] = None) -> PackedTensor:
+    """Quantize + pack a weight whose trailing two dims are (K, N), with
+    the format's default scale method and per-(K-group, channel) scales
+    (``group_size`` None: per channel)."""
+    if w.dim() < 2:
+        raise ValueError("pack_tensor needs a trailing (K, N) matrix")
+    lead, (k, n) = tuple(w.shape[:-2]), tuple(w.shape[-2:])
+    per = lanes_per_word(spec.bits)
+    g = int(group_size) if group_size else None
+    if g is not None and g >= k:
+        g = None                      # group=K: per-channel
+    if w.dim() == 2:
+        _, bk, bn = default_blocks(spec)
+        if g is not None and bk % g:
+            raise ValueError(f"K block {bk} not a multiple of group {g}")
+    else:
+        bk, bn = (g or 1), per
+    kp, np_ = _round_up(k, bk), _round_up(n, bn)
+
+    scales = quant.group_scales(spec, w, g)
+    codes = codec_mod.encode(
+        spec, w.float() / quant.expand_group_scales(scales, g, k))
+    codes = torch.nn.functional.pad(codes, (0, np_ - n, 0, kp - k))
+    words = pack(codes, spec.bits)
+    g_tot = kp // g if g is not None else 1
+    scales_p = torch.nn.functional.pad(
+        scales.float(), (0, np_ - n, 0, g_tot - scales.shape[-2]), value=1.0)
+    if w.dim() == 2:
+        blk = codes.reshape(kp // bk, bk, np_ // bn, bn)
+        mask = (blk.abs().amax(dim=(1, 3)) > 0).to(torch.int32)
+    else:
+        mask = (codes.abs().amax(dim=(-2, -1), keepdim=True) > 0
+                ).to(torch.int32)
+    return PackedTensor(words, scales_p.contiguous(), mask, (k, n), spec, g)
+
+
+def _expand_scales(t: PackedTensor, dtype=torch.float32) -> torch.Tensor:
+    kp = t.words.shape[-2]
+    return quant.expand_group_scales(t.scales.to(dtype),
+                                     kp // t.scales.shape[-2], kp)
+
+
+def to_dense(t: PackedTensor, dtype=torch.float32) -> torch.Tensor:
+    """Decode a PackedTensor of any rank back to dense float."""
+    n_padded = t.words.shape[-1] * lanes_per_word(t.spec.bits)
+    codes = unpack(t.words, t.spec.bits, n_padded)
+    w = codec_mod.decode(t.spec, codes, dtype=dtype)
+    w = w[..., : t.scales.shape[-1]] * _expand_scales(t, dtype)
+    return w[..., : t.shape[0], : t.shape[1]]
+
+
+def packed_matmul(x: torch.Tensor, t: PackedTensor) -> torch.Tensor:
+    """x (..., K) @ W for one 2-D packed slice -> (..., N) float32.  Group
+    scales apply inside the K accumulation, per-channel scales once at
+    the output."""
+    if t.words.dim() != 2:
+        raise ValueError("packed_matmul takes one 2-D slice; index a "
+                         "stacked PackedTensor by layer first")
+    k, n = t.shape
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.dtype not in (torch.float32, torch.bfloat16):
+        x2 = x2.float()
+    out = rmmec_matmul(x2.contiguous(), t.words, t.scales, t.mask, t.spec, n)
+    return out.reshape(*lead, n)

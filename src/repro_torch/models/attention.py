@@ -1,0 +1,228 @@
+"""GQA attention: prefill over a full sequence and one-token decode over a
+KV cache (the counterpart of ``repro.models.attention``, dense serving
+path).
+
+Prefill is plain torch: one causal softmax block when the sequence fits
+``cfg.seq_chunk`` (or does not divide into chunks), else an online
+softmax over KV chunks -- the reference's two paths with its dtypes.
+The KV cache is bf16 or posit8 codes with bf16 po2 scales grouped along
+Dh.  Quantized decode goes through ``kernels.flash_decode``, which
+launches the CUDA kernel on a CUDA cache and runs its plain blocked loop
+on a CPU cache.  Decode writes the new token into the cache in place
+(the reference returns an updated copy); the caller owns the cache.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..core import codec as codec_mod
+from ..core import formats as fmt
+from ..core import quant
+from ..kernels.flash_decode import flash_decode, flash_decode_plain
+from ..kernels.ref import dequant_kv_ref
+from . import layers as L
+
+__all__ = ["attn_init", "attn_apply", "attn_decode", "quantize_kv",
+           "dequantize_kv", "kv_scale_cols", "decode_quantized_blocks"]
+
+_NEG = -1e30
+
+
+def attn_init(gen: torch.Generator, cfg, lead=()):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {
+        "wq": L.dense_init(gen, d, cfg.n_heads * hd, bias=cfg.qkv_bias,
+                           lead=lead),
+        "wk": L.dense_init(gen, d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias,
+                           lead=lead),
+        "wv": L.dense_init(gen, d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias,
+                           lead=lead),
+        "wo": L.dense_init(gen, cfg.n_heads * hd, d, lead=lead),
+    }
+
+
+def _qkv(p, x, cfg, positions):
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = L.dense(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
+    k = L.dense(p["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    v = L.dense(p["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attend_block(q5, k, v, bias):
+    """Full softmax attention on one block; q5 (B, Sq, Kh, G, Dh).  Scores
+    and softmax in f32, probabilities back in the activation dtype."""
+    s = torch.einsum("bqkgd,btkd->bkgqt", q5.float(), k.float())
+    s = s * (1.0 / math.sqrt(q5.shape[-1])) + bias
+    p = torch.softmax(s, dim=-1).to(q5.dtype)
+    return torch.einsum("bkgqt,btkd->bqkgd", p.float(),
+                        v.float()).to(q5.dtype)
+
+
+def _causal_bias(sq: int, skv: int, q_offset: int, device) -> torch.Tensor:
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=device)[None, :]
+    return torch.where(kpos <= qpos, 0.0, _NEG)[None, None, None]
+
+
+def _flash_scan(q5, k, v, c: int, kv_mask=None):
+    """Online softmax over KV chunks of ``c`` slots; the accumulator stays
+    in the activation dtype, as in the reference's scan."""
+    b, s, kh, g, hd = q5.shape
+    n = s // c
+    scale = 1.0 / math.sqrt(hd)
+    qpos = torch.arange(s, device=q5.device)
+    acc = torch.zeros((b, kh, g, s, hd), dtype=q5.dtype, device=q5.device)
+    m = torch.full((b, kh, g, s), -math.inf, device=q5.device)
+    l = torch.zeros((b, kh, g, s), device=q5.device)
+    for idx in range(n):
+        kc, vc = k[:, idx * c:(idx + 1) * c], v[:, idx * c:(idx + 1) * c]
+        sc = torch.einsum("bqkgd,btkd->bkgqt", q5.float(), kc.float()) * scale
+        kpos = idx * c + torch.arange(c, device=q5.device)
+        mask = (kpos[None, :] <= qpos[:, None])[None, None, None]
+        if kv_mask is not None:
+            mask = mask & kv_mask[:, idx * c:(idx + 1) * c][:, None, None,
+                                                             None, :]
+        sc = torch.where(mask, sc, _NEG)
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bkgqt,btkd->bkgqd", p.to(q5.dtype).float(),
+                          vc.float()).to(q5.dtype)
+        acc = acc * alpha[..., None].to(acc.dtype) + pv
+        m = m_new
+    out = acc / l[..., None].to(acc.dtype)
+    return out.permute(0, 3, 1, 2, 4)                  # (B, S, Kh, G, Dh)
+
+
+def attn_apply(p, x, cfg, positions=None, kv_mask=None):
+    """Causal self-attention over a full sequence (prefill).  Returns
+    (out, (k, v)).  ``kv_mask`` (B, S) bool marks real tokens of a
+    left-padded batch; keys at False slots are masked out."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _qkv(p, x, cfg, positions)
+    g = cfg.n_heads // cfg.n_kv_heads
+    q5 = q.reshape(b, s, cfg.n_kv_heads, g, q.shape[-1])
+    c = min(cfg.seq_chunk, s)
+    n_chunks = s // c if s % c == 0 else 1
+    if n_chunks <= 1:
+        bias = _causal_bias(s, s, 0, x.device)
+        if kv_mask is not None:
+            bias = bias + torch.where(kv_mask, 0.0,
+                                      _NEG)[:, None, None, None, :]
+        out = _attend_block(q5, k, v, bias)
+    else:
+        out = _flash_scan(q5, k, v, c, kv_mask)
+    out = out.reshape(b, s, cfg.n_heads * q.shape[-1])
+    return L.dense(p["wo"], out), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+def kv_scale_cols(head_dim: int, group_size: Optional[int]) -> int:
+    """Scale columns per (token, head): Dh/group, or 1 when the group is
+    None, does not divide Dh, or is >= Dh."""
+    if not group_size or group_size >= head_dim or head_dim % group_size:
+        return 1
+    return head_dim // group_size
+
+
+def quantize_kv(k: torch.Tensor, group_size: Optional[int] = None):
+    """Posit8 codes (..., Dh) uint8 and po2 scales (..., Gs) bf16 of a KV
+    tensor, through the weight plane's ``group_scales`` grid."""
+    dh = k.shape[-1]
+    gs = kv_scale_cols(dh, group_size)
+    g = None if gs == 1 else group_size
+    s = quant.group_scales(fmt.POSIT8, k[..., None].float(), g,
+                           method="absmax_po2")[..., 0]
+    codes = codec_mod.encode(
+        fmt.POSIT8, k.float() / torch.repeat_interleave(s, dh // gs, dim=-1))
+    return codes.to(torch.uint8), s.to(torch.bfloat16)
+
+
+def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    """codes (..., Dh) + scales (..., Gs) -> (..., Dh) in ``dtype``."""
+    return dequant_kv_ref(codes, scale).to(dtype)
+
+
+def _cache_group(layer_cache) -> Optional[int]:
+    gs = layer_cache["k_scale"].shape[-1]
+    return None if gs == 1 else layer_cache["k_codes"].shape[-1] // gs
+
+
+def _cache_write(layer_cache, k_new, v_new, pos: int) -> None:
+    """Write one token's k/v (B, 1, Kh, Dh) at slot ``pos``, in place."""
+    if "k" in layer_cache:
+        layer_cache["k"][:, pos] = k_new[:, 0].to(layer_cache["k"].dtype)
+        layer_cache["v"][:, pos] = v_new[:, 0].to(layer_cache["v"].dtype)
+        return
+    group = _cache_group(layer_cache)
+    for name, new in (("k", k_new), ("v", v_new)):
+        codes, scale = quantize_kv(new, group)
+        layer_cache[f"{name}_codes"][:, pos] = codes[:, 0]
+        layer_cache[f"{name}_scale"][:, pos] = scale[:, 0]
+
+
+def decode_quantized_blocks(q4, layer_cache, pos: int, softcap: float = 0.0,
+                            blk: Optional[int] = None, pad=None):
+    """Length-aware decode over a posit8 cache in plain torch: the online
+    softmax over ceil((pos+1)/blk) KV blocks that the flash-decode
+    kernel's CPU path runs (``kernels.flash_decode.flash_decode_plain``).
+    q4 (B, Kh, G, Dh) -> (B, Kh, G, Dh) f32."""
+    return flash_decode_plain(q4, layer_cache["k_codes"],
+                              layer_cache["k_scale"], layer_cache["v_codes"],
+                              layer_cache["v_scale"], pos, pad, softcap, blk)
+
+
+def attn_decode(p, x, cfg, layer_cache, pos: int, pad=None):
+    """One-token decode; x (B, 1, D), ``pos`` the slot being written.
+    Updates ``layer_cache`` in place and returns the attention output.
+    ``pad`` (B,) int32: left-pad widths of a ragged batch -- RoPE
+    positions shift to ``pos - pad[b]`` and slots below ``pad[b]`` are
+    masked."""
+    b = x.shape[0]
+    if pad is None:
+        positions = torch.full((b, 1), pos, dtype=torch.int32,
+                               device=x.device)
+    else:
+        positions = (pos - pad).to(torch.int32)[:, None]
+    q, k_new, v_new = _qkv(p, x, cfg, positions)
+    _cache_write(layer_cache, k_new, v_new, pos)
+    g = cfg.n_heads // cfg.n_kv_heads
+    hd = q.shape[-1]
+    if "k" not in layer_cache:
+        q4 = q.reshape(b, cfg.n_kv_heads, g, hd)
+        out4 = flash_decode(q4, layer_cache["k_codes"],
+                            layer_cache["k_scale"], layer_cache["v_codes"],
+                            layer_cache["v_scale"], pos, pad=pad,
+                            softcap=cfg.attn_logit_softcap)
+        out = out4.to(x.dtype).reshape(b, 1, cfg.n_heads * hd)
+        return L.dense(p["wo"], out)
+    k, v = layer_cache["k"], layer_cache["v"]
+    q5 = q.reshape(b, 1, cfg.n_kv_heads, g, hd)
+    s = torch.einsum("bqkgd,btkd->bkgqt", q5.float(), k.float())
+    s = s * (1.0 / math.sqrt(hd))
+    if cfg.attn_logit_softcap > 0.0:
+        s = torch.tanh(s / cfg.attn_logit_softcap) * cfg.attn_logit_softcap
+    tpos = torch.arange(k.shape[1], device=x.device)
+    live = tpos[None, None, None, None, :] <= pos
+    if pad is not None:
+        live = live & (tpos[None, None, None, None, :] >=
+                       pad[:, None, None, None, None])
+    s = torch.where(live, s, _NEG)
+    pw = torch.softmax(s, dim=-1).to(x.dtype)
+    out = torch.einsum("bkgqt,btkd->bqkgd", pw.float(), v.float()).to(x.dtype)
+    return L.dense(p["wo"], out.reshape(b, 1, cfg.n_heads * hd))
