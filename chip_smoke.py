@@ -20,6 +20,22 @@ Phases, each of which fails the run (non-zero exit) on any miss:
   4. the reduced config (float32) served on the card and on the CPU
      (plain versions) from the same weights: logits and tokens must agree.
 
+and, for continuous batching over the paged posit8 KV pool:
+
+  2b. ``paged_flash_decode`` and ``paged_flash_prefill`` vs their plain
+      versions and the naive oracles at qwen2-0.5b's shapes (page 128,
+      8 pages per request; positions 0, 127, 128, 1023 and a parked row;
+      chunks of 128 and 256), bitwise against ``flash_decode`` over a
+      shuffled scatter of a contiguous cache, and C=1 prefill bitwise
+      against paged decode;
+  3b. ``ContinuousEngine`` serving full-width qwen2-0.5b (paper_mixed
+      weights, 20 pages of 128 slots, prefix cache, 256-token chunks) a
+      16-request mix with a shared preamble and staggered arrivals, at
+      K=1 and K=4 decode steps per dispatch under the sync guard: equal
+      tokens, a preemption and a prefix hit, exact launch counts;
+  4b. the reduced config (float32): the carry context against the static
+      engine, the card against the CPU, and prefix cache on against off.
+
 The last lines are the card's name and power limit, one JSON line with
 each kernel's launches, error and times, and ``{"ok": true, ...}``.
 Without a CUDA card, or outside the repository, it exits non-zero.
@@ -47,6 +63,8 @@ RMMEC_SRC = "src/repro_torch/csrc/rmmec_matmul.cu"
 FLASH_SRC = "src/repro_torch/csrc/flash_decode.cu"
 RMMEC_TPU = "src/repro/kernels/rmmec_matmul.py:127"
 FLASH_TPU = "src/repro/kernels/flash_decode.py:203"
+PAGED_DECODE_TPU = "src/repro/kernels/flash_decode.py:289"
+PAGED_PREFILL_TPU = "src/repro/kernels/flash_decode.py:383"
 
 
 def log(msg: str) -> None:
@@ -72,6 +90,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         ends[i].record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def bound_ms(nbytes: float, flops: float, peak: float):
@@ -423,6 +449,410 @@ def phase_parity(fails) -> None:
         fails.append("parity: greedy tokens differ between cuda and cpu")
 
 
+# ---------------------------------------------------------------------------
+# phase 2b: paged kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+def _paged_pool(gen, n_pages, page, kh, dh, group):
+    from repro_torch.models.attention import quantize_kv
+    kv = torch.randn((2, n_pages, page, kh, dh), generator=gen, device="cuda")
+    return (*quantize_kv(kv[0], group), *quantize_kv(kv[1], group))
+
+
+def _check(tag, got, want, naive, fails, atol=FLASH_ATOL) -> float:
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    err_n = (got - naive).abs().max().item()
+    ok = err <= atol and err_n <= atol and torch.isfinite(got).all().item()
+    log(f"[paged] {tag} max_abs_err={err:.3e} vs plain, {err_n:.3e} vs "
+        f"naive (tol {atol}) {'ok' if ok else 'MISS'}")
+    if not ok:
+        fails.append(f"paged {tag}")
+    return err
+
+
+def _bitwise(tag, got, want, fails) -> None:
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    log(f"[paged] bitwise {tag}: {'ok' if same else 'MISS'}")
+    if not same:
+        fails.append(f"paged bitwise {tag}")
+
+
+def phase_paged(summary, fails) -> None:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, paged_flash_decode, paged_flash_decode_plain,
+        paged_flash_prefill, paged_flash_prefill_plain)
+    from repro_torch.models.attention import quantize_kv
+    gen = torch.Generator("cuda").manual_seed(4)
+    b, kh, g, dh, page, npp = 8, 2, 7, 64, 128, 8
+    n_pages = b * npp                        # + the parking page 0
+    t = npp * page
+    rng = np.random.default_rng(4)
+    err_d = err_p = 0.0
+    for group in (None, 32):
+        pool = _paged_pool(gen, n_pages + 1, page, kh, dh, group)
+        pt_np = rng.permutation(np.arange(1, n_pages + 1)).reshape(b, npp)
+        pt_np[-1] = 0                        # a parked row: all page 0
+        pt = torch.tensor(pt_np, dtype=torch.int32, device="cuda")
+        q = torch.randn((b, kh, g, dh), generator=gen, device="cuda")
+        for positions in ([0, 127, 128, 1023, 5, 300, 777, 0],
+                          [1023, 640, 255, 129, 1, 900, 512, 0]):
+            pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+            for softcap in (0.0, 20.0):
+                got = paged_flash_decode(q, *pool, pt, pos, softcap)
+                err_d = max(err_d, _check(
+                    f"decode group={group} pos={positions} softcap="
+                    f"{softcap}", got,
+                    paged_flash_decode_plain(q, *pool, pt, pos, softcap),
+                    ref.paged_flash_decode_ref(q, *pool, pt, pos, softcap),
+                    fails))
+                # C=1 prefill rows are paged decode, bitwise
+                one = paged_flash_prefill(q[:, None], *pool, pt, pos, softcap)
+                _bitwise(f"C=1 prefill == decode group={group} "
+                         f"pos={positions} softcap={softcap}", one[:, 0], got,
+                         fails)
+        for bb, c, starts in ((1, 128, [0]), (1, 256, [768]), (1, 256, [256]),
+                              (3, 128, [0, 512, 896]), (3, 256, [0, 256, 768])):
+            q5 = torch.randn((bb, c, kh, g, dh), generator=gen, device="cuda")
+            st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+            for softcap in (0.0, 20.0):
+                got = paged_flash_prefill(q5, *pool, pt[:bb], st, softcap)
+                err_p = max(err_p, _check(
+                    f"prefill group={group} B={bb} C={c} start={starts} "
+                    f"softcap={softcap}", got,
+                    paged_flash_prefill_plain(q5, *pool, pt[:bb], st, softcap),
+                    ref.paged_prefill_ref(q5, *pool, pt[:bb], st, softcap),
+                    fails))
+        # a contiguous cache scattered over shuffled pages: paged decode ==
+        # flash_decode with blk == page, bitwise
+        kv = torch.randn((2, b, t, kh, dh), generator=gen, device="cuda")
+        contig = (*quantize_kv(kv[0], group), *quantize_kv(kv[1], group))
+        perm = torch.tensor(rng.permutation(np.arange(1, n_pages + 1))
+                            .reshape(b, npp), dtype=torch.int32, device="cuda")
+        scattered = []
+        for x in contig:
+            buf = torch.zeros((n_pages + 1, page) + x.shape[2:], dtype=x.dtype,
+                              device="cuda")
+            buf[perm.reshape(-1).long()] = x.reshape(b * npp, page,
+                                                     *x.shape[2:])
+            scattered.append(buf)
+        for p_ in (0, 127, 128, 700, 1023):
+            pos = torch.full((b,), p_, dtype=torch.int32, device="cuda")
+            _bitwise(f"paged == contiguous group={group} pos={p_}",
+                     paged_flash_decode(q, *scattered, perm, pos, 20.0),
+                     flash_decode(q, *contig, p_, softcap=20.0, blk=page),
+                     fails)
+
+    # times at the continuous path's shapes: a decode dispatch row set of
+    # eight requests mid-generation, and one 256-token chunk late in a
+    # prompt (768 live slots)
+    pool = _paged_pool(gen, n_pages + 1, page, kh, dh, None)
+    pt = torch.tensor(rng.permutation(np.arange(1, n_pages + 1))
+                      .reshape(b, npp), dtype=torch.int32, device="cuda")
+    gs = pool[1].shape[-1]
+    slot_bytes = 2 * kh * (dh + 2 * gs)          # K+V codes and scales
+    positions = [383, 511, 639, 700, 450, 300, 600, 255]
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    q = torch.randn((b, kh, g, dh), generator=gen, device="cuda")
+    ms = time_ms(lambda: paged_flash_decode(q, *pool, pt, pos))
+    plain = time_ms(lambda: paged_flash_decode_plain(q, *pool, pt, pos))
+    kd, vd, mask = _gathered_bf16(pool, pt, pos[:, None])
+    qd = q.reshape(b, kh * g, 1, dh).to(torch.bfloat16)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True))
+    live = sum(p_ + 1 for p_ in positions)
+    pages_live = sum(p_ // page + 1 for p_ in positions)
+    nbytes = (pages_live * page * slot_bytes + 2 * q.numel() * 4
+              + pt.numel() * 4 + b * 4)
+    b_ms, b_by = bound_ms(nbytes, 4.0 * live * kh * g * dh, PEAK_FLOPS["f32"])
+    log(f"[paged] time decode B={b} positions={positions}: kernel {ms:.4f} "
+        f"ms, plain {plain:.4f} ms, library (SDPA, bf16, gathered "
+        f"dequantized prefix, masked) {lib:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by})")
+    summary["paged_flash_decode"] = dict(
+        max_abs_err=err_d, ms=ms, plain_ms=plain, library_ms=lib,
+        bound_ms=b_ms, bound_by=b_by)
+
+    c, start = 256, 512
+    q5 = torch.randn((1, c, kh, g, dh), generator=gen, device="cuda")
+    st = torch.tensor([start], dtype=torch.int32, device="cuda")
+    ms = time_ms(lambda: paged_flash_prefill(q5, *pool, pt[:1], st))
+    plain = time_ms(lambda: paged_flash_prefill_plain(q5, *pool, pt[:1], st))
+    qpos = start + torch.arange(c, device="cuda")
+    kd, vd, mask = _gathered_bf16(pool, pt[:1], qpos[None], start + c)
+    qd = q5.reshape(1, c, kh * g, dh).transpose(1, 2).to(torch.bfloat16)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True))
+    pairs = sum(start + i + 1 for i in range(c))
+    nbytes = (-(-(start + c) // page) * page * slot_bytes
+              + 2 * q5.numel() * 4 + npp * 4 + 4)
+    b_ms, b_by = bound_ms(nbytes, 4.0 * pairs * kh * g * dh, PEAK_FLOPS["f32"])
+    log(f"[paged] time prefill B=1 C={c} start={start}: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, library (SDPA, bf16, causal mask) {lib:.4f} "
+        f"ms, bound {b_ms:.5f} ms ({b_by})")
+    summary["paged_flash_prefill"] = dict(
+        max_abs_err=err_p, ms=ms, plain_ms=plain, library_ms=lib,
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def _gathered_bf16(pool, pt, horizon, width=None):
+    """The library yardstick's operands: every request's pages gathered
+    and dequantized to bf16 (B, Kh, T, Dh), cut to ``width`` slots, and a
+    bool mask (B, 1, R, T) of the slots each query row sees."""
+    from repro_torch.kernels.ref import dequant_kv_ref
+    kc, ks, vc, vs = pool
+    b, npp = pt.shape
+    idx = pt.long()
+
+    def gather(codes, scale):
+        x = dequant_kv_ref(codes[idx], scale[idx])       # (B, NP, page, Kh, Dh)
+        x = x.reshape(b, -1, *x.shape[3:])[:, :width]
+        return x.transpose(1, 2).to(torch.bfloat16).contiguous()
+
+    k, v = gather(kc, ks), gather(vc, vs)
+    tpos = torch.arange(k.shape[2], device="cuda")
+    mask = tpos[None, None, None, :] <= horizon[:, None, :, None]
+    return k, v, mask
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: continuous serving at full width
+# ---------------------------------------------------------------------------
+
+def _continuous_traffic(vocab: int):
+    """16 requests from numpy seed 0: even ones share a 256-token
+    preamble followed by 64-384 tokens of their own, odd ones have their
+    own prompts of 96-640 tokens; 16-64 new tokens each."""
+    rng = np.random.default_rng(0)
+    preamble = rng.integers(0, vocab, 256)
+    reqs = []
+    for i in range(16):
+        if i % 2 == 0:
+            prompt = np.concatenate(
+                [preamble, rng.integers(0, vocab, int(rng.integers(64, 385)))])
+        else:
+            prompt = rng.integers(0, vocab, int(rng.integers(96, 641)))
+        reqs.append((prompt, int(rng.integers(16, 65))))
+    return reqs
+
+
+def _serve_continuous(eng, reqs):
+    """Submit the first 8 requests, step 3 times, submit the other 8, and
+    drain; returns {request index: output tokens}."""
+    rids = [eng.submit(p, n) for p, n in reqs[:8]]
+    for _ in range(3):
+        eng.step()
+    rids += [eng.submit(p, n) for p, n in reqs[8:]]
+    out = eng.run()
+    return {i: out[r] for i, r in enumerate(rids)}
+
+
+def _launch_counters():
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, paged_flash_decode, paged_flash_prefill)
+    from repro_torch.kernels.rmmec_matmul import rmmec_matmul
+    return {"rmmec_matmul": rmmec_matmul, "flash_decode": flash_decode,
+            "paged_flash_decode": paged_flash_decode,
+            "paged_flash_prefill": paged_flash_prefill}
+
+
+def phase_continuous(summary, fails) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models import zoo
+    from repro_torch.obs import TraceRecorder
+    from repro_torch.serve.engine import ContinuousEngine, _sync_guard
+    from repro_torch.serve.paged_kv import page_handoff_bytes
+
+    # the guard the measured runs turn on must really refuse a sync
+    try:
+        with _sync_guard(True):
+            torch.zeros(1, device="cuda").item()
+        fails.append("continuous: the sync guard let a .item() through")
+    except RuntimeError:
+        pass
+    cfg = get_config("qwen2-0.5b")
+    smi = card()
+    t0 = time.perf_counter()
+    # paper_mixed, packed once and shared by the engines below
+    params = zoo.pack_params(
+        zoo.init_model(cfg, torch.Generator("cuda").manual_seed(0)),
+        PrecisionPolicy.paper_mixed())
+    kw = dict(max_len=1024, page_size=128, max_batch=8,
+              prefill_chunk_tokens=256, prefix_cache=True)
+    warm = ContinuousEngine(cfg, params, n_pages=8, **kw)
+    rng = np.random.default_rng(1)
+    for n in (300, 40):
+        warm.submit(rng.integers(0, cfg.vocab, n), 3)
+    warm.run()
+    torch.cuda.synchronize()
+    log(f"[cont] {cfg.name} paper_mixed, pool 20 x 128 slots "
+        f"({21 * page_handoff_bytes(cfg, 128) / 1e6:.1f} MB with the "
+        f"parking page); init, pack and warm-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = _continuous_traffic(cfg.vocab)
+    counters = _launch_counters()
+    outs, stats = {}, {}
+    for k in (1, 4):
+        rec = TraceRecorder()
+        eng = ContinuousEngine(cfg, params, n_pages=20, decode_steps=k,
+                               trace=rec, sync_guard=True, **kw)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs[k] = _serve_continuous(eng, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        sched = eng.scheduler
+        chunks = rec.count("PREFILL_CHUNK")
+        iters = eng.decode_dispatches * k
+        gen = sum(len(o) - len(p) for o, (p, _) in zip(outs[k].values(), reqs))
+        span = {n: rec.events(n) for n in ("decode_dispatch", "decode_sync",
+                                           "prefill")}
+        dec_ms = sum(e["dur"] for n in ("decode_dispatch", "decode_sync")
+                     for e in span[n]) * 1e3
+        pre_ms = sum(e["dur"] for e in span["prefill"]) * 1e3
+        st = dict(
+            k=k, wall_s=wall, generated=gen, tok_per_s=gen / wall,
+            dispatches=eng.decode_dispatches, decode_iterations=iters,
+            ms_per_dispatch=dec_ms / max(eng.decode_dispatches, 1),
+            ms_per_decode_iteration=dec_ms / max(iters, 1),
+            prefill_chunks=chunks, ms_per_prefill_chunk=pre_ms / max(chunks, 1),
+            preemptions=sched.preemption_count,
+            preempted=list(sched.preempted_log),   # rid == request index
+            prefix_hits=sched.prefix.hits,
+            prefill_tokens=eng.prefill_tokens_computed,
+            page_table_uploads=eng.page_table_uploads,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        stats[k] = st
+        log(f"[cont] {smi}, K={k}: " + json.dumps(st))
+        n_layers = cfg.n_layers
+        want = {"paged_flash_decode": n_layers * iters,
+                "paged_flash_prefill": n_layers * chunks,
+                "rmmec_matmul": 7 * n_layers * (iters + chunks),
+                "flash_decode": 0}
+        log(f"[cont] K={k} launches {launches}, expected {want}")
+        for name, n in want.items():
+            if launches[name] != n:
+                fails.append(f"continuous K={k}: {name} launched "
+                             f"{launches[name]} times, expected {n}")
+            if n and k == 1:
+                summary[name]["launches_continuous"] = launches[name]
+        if eng.pool.used_pages != len(sched.prefix.cached_pages):
+            fails.append(f"continuous K={k}: {eng.pool.used_pages} pages in "
+                         f"use after draining, {len(sched.prefix)} cached")
+        for i, (p, n) in enumerate(reqs):
+            o = outs[k][i]
+            if len(o) != len(p) + n or o.min() < 0 or o.max() >= cfg.vocab:
+                fails.append(f"continuous K={k}: request {i} output "
+                             f"{o.shape} [{o.min()}, {o.max()}]")
+    if stats[1]["preemptions"] < 1 or stats[1]["prefix_hits"] < 1:
+        fails.append(f"continuous: K=1 run had {stats[1]['preemptions']} "
+                     f"preemptions and {stats[1]['prefix_hits']} prefix hits")
+    differ = [i for i in outs[1] if not np.array_equal(outs[1][i], outs[4][i])]
+    log(f"[cont] K=1 and K=4 tokens equal for all {len(reqs)} requests: "
+        f"{not differ}")
+    if differ:
+        fails.append(f"continuous: K=1 and K=4 tokens differ for requests "
+                     f"{differ} (preempted: K=1 {stats[1]['preempted']}, "
+                     f"K=4 {stats[4]['preempted']})")
+    summary["continuous"] = stats
+    profile_continuous(cfg, params, kw, reqs)
+
+
+def profile_continuous(cfg, params, kw, reqs, warm_steps: int = 4,
+                       steps: int = 1) -> None:
+    """Where a continuous step's time goes: a K=4 engine on the same
+    traffic, ``warm_steps`` steps unprofiled, then ``steps`` steps under
+    the profiler -- device busy time and share, launches, top kernels."""
+    from repro_torch.serve.engine import ContinuousEngine
+    eng = ContinuousEngine(cfg, params, n_pages=20, decode_steps=4, **kw)
+    for p, n in reqs:
+        eng.submit(p, n)
+    for _ in range(warm_steps):
+        eng.step()
+
+    def window():
+        for _ in range(steps):
+            eng.step()
+
+    t0 = time.perf_counter()
+    wall, dev, host = _profile(window)
+    log(f"[cprofile] profiler window and its processing "
+        f"{time.perf_counter() - t0:.1f} s")
+    busy = sum(v[0] for v in dev.values())
+    n = sum(v[1] for v in dev.values())
+    log(f"[cprofile] {steps} steps of K=4 (profiled): wall {wall / steps:.2f} "
+        f"ms/step, device busy {busy / steps:.2f} ms/step, busy share "
+        f"{busy / wall:.3f}, kernel launches {n / steps:.0f}/step")
+    for k, (ms, cnt) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"[cprofile]   device {ms / steps:8.3f} ms/step {cnt / steps:7.1f} "
+            f"calls  {k[:90]}")
+    for k, ms in sorted(host.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"[cprofile]   host   {ms / steps:8.3f} ms/step  {k[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: continuous serving parity, reduced config in float32
+# ---------------------------------------------------------------------------
+
+def phase_continuous_parity(fails) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models import zoo
+    from repro_torch.serve.engine import ContinuousEngine, ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype="float32")
+    params = zoo.init_model(cfg, torch.Generator("cpu").manual_seed(5))
+    rng = np.random.default_rng(5)
+    preamble = rng.integers(0, cfg.vocab, 128)
+    reqs = []
+    for i, (n, new) in enumerate(((5, 8), (100, 12), (60, 6), (90, 10),
+                                  (33, 16), (70, 9))):
+        prompt = rng.integers(0, cfg.vocab, n)
+        if i % 2:
+            prompt = np.concatenate([preamble, prompt])
+        reqs.append((prompt, new))
+    policy = PrecisionPolicy.paper_mixed()
+    kw = dict(n_pages=8, max_len=256, max_batch=4, policy=policy,
+              prefill_chunk_tokens=128)
+
+    def serve(device, **extra):
+        eng = ContinuousEngine(cfg, params, device=device, **kw, **extra)
+        rids = [eng.submit(p, n) for p, n in reqs]
+        out = eng.run()
+        return [out[r] for r in rids], eng
+
+    carry, eng = serve("cuda", decode_steps=4)
+    static = ServeEngine(cfg, params, max_len=256, quantized_kv=True,
+                         policy=policy)
+    want = [static.generate(p[None], n)[0] for p, n in reqs]
+    ok_static = all(np.array_equal(a, b) for a, b in zip(carry, want))
+    cpu, _ = serve("cpu", decode_steps=4)
+    ok_cpu = all(np.array_equal(a, b) for a, b in zip(carry, cpu))
+    on, eng_on = serve("cuda", decode_steps=2, prefix_cache=True)
+    off, _ = serve("cuda", decode_steps=2, prefill_context="pages")
+    ok_prefix = all(np.array_equal(a, b) for a, b in zip(on, off))
+    log(f"[cparity] {cfg.name} (float32), page {eng.page_size}: carry "
+        f"context == static engine: {ok_static}; card == CPU: {ok_cpu} "
+        f"({eng.scheduler.preemption_count} preemptions); prefix cache on "
+        f"== off (pages context, {eng_on.scheduler.prefix.hits} hits): "
+        f"{ok_prefix}")
+    for ok, what in ((ok_static, "carry context vs static engine"),
+                     (ok_cpu, "card vs CPU"),
+                     (ok_prefix, "prefix cache on vs off")):
+        if not ok:
+            fails.append(f"continuous parity: {what} tokens differ")
+    if eng_on.scheduler.prefix.hits < 1:
+        fails.append("continuous parity: no prefix hit")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -442,29 +872,37 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_rmmec(summary, fails)
     phase_flash(summary, fails)
+    phase_paged(summary, fails)
     log(f"[time] kernel checks {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_serve(summary, fails)
     log(f"[time] full-width serve {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_parity(fails)
-    log(f"[time] parity {time.perf_counter() - t0:.1f} s; total "
+    log(f"[time] parity {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_continuous(summary, fails)
+    log(f"[time] full-width continuous serve {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_continuous_parity(fails)
+    log(f"[time] continuous parity {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     if fails:
         for f in fails:
             print(f"FAIL {f}", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card())
     kernels = []
-    for name, src, tpu in (("rmmec_matmul", RMMEC_SRC, RMMEC_TPU),
-                           ("flash_decode", FLASH_SRC, FLASH_TPU)):
+    for name, src, tpu in (
+            ("rmmec_matmul", RMMEC_SRC, RMMEC_TPU),
+            ("flash_decode", FLASH_SRC, FLASH_TPU),
+            ("paged_flash_decode", FLASH_SRC, PAGED_DECODE_TPU),
+            ("paged_flash_prefill", FLASH_SRC, PAGED_PREFILL_TPU)):
         s = summary[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": tpu, "launches": s["launches"],
+                        "replaces": tpu,
+                        "launches": s.get("launches",
+                                          s.get("launches_continuous")),
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],

@@ -69,6 +69,14 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
 
+    @property
+    def n_attn_layers(self) -> int:
+        """Attention-layer count: all layers, or 1 per ``attn_every``
+        group for hybrid stacks."""
+        if self.attn_every == 0:
+            return self.n_layers
+        return self.n_layers // self.attn_every
+
     def reduced(self) -> "ModelConfig":
         """Tiny same-family variant for CPU tests."""
         return dataclasses.replace(

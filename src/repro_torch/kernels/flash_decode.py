@@ -1,12 +1,22 @@
-"""Decode attention straight from a posit8 KV cache (the counterpart of
-``repro.kernels.flash_decode.flash_decode_pallas``).
+"""Attention straight from a posit8 KV cache (the counterpart of
+``repro.kernels.flash_decode``): contiguous decode, paged decode and
+paged chunk prefill.
 
-``flash_decode`` launches the CUDA kernel of ``csrc/flash_decode.cu`` on
-a CUDA tensor and runs ``flash_decode_plain`` on a CPU tensor.  The plain
-version is the twin of the reference's blocked XLA loop
-(``repro.models.attention.decode_quantized_blocks``): an online softmax
-over the ``ceil((pos+1)/blk)`` live KV blocks, each dequantized on its
-own, with the -1e30 sentinel and the optional tanh softcap.
+Each wrapper launches its CUDA kernel of ``csrc/flash_decode.cu`` on a
+CUDA tensor and runs its plain version on a CPU tensor:
+
+  flash_decode        / flash_decode_plain        <- flash_decode_pallas
+  paged_flash_decode  / paged_flash_decode_plain  <- paged_flash_decode_pallas
+  paged_flash_prefill / paged_flash_prefill_plain <- paged_flash_prefill_pallas
+
+The plain versions are the twins of the reference's blocked XLA loops
+(``repro.models.attention.decode_quantized_blocks``,
+``paged_decode_blocked``, ``paged_prefill_blocked``): an online softmax
+over the live KV blocks, each dequantized on its own, with the -1e30
+sentinel and the optional tanh softcap, all through one block step.  The
+paged prefill flattens its queries to rows ``qi*G + gi`` with horizon
+``start + qi``, so a C = 1 chunk is the decode computation itself.  On
+the CUDA path no wrapper reads a device tensor back to the host.
 """
 
 from __future__ import annotations
@@ -20,7 +30,9 @@ import torch
 from . import _build
 from .ref import dequant_kv_ref, no_tf32
 
-__all__ = ["flash_decode", "flash_decode_plain", "default_kv_block"]
+__all__ = ["flash_decode", "flash_decode_plain", "paged_flash_decode",
+           "paged_flash_decode_plain", "paged_flash_prefill",
+           "paged_flash_prefill_plain", "default_kv_block"]
 
 _NEG_INF = -1e30
 
@@ -51,6 +63,14 @@ def _online_softmax_block(qf, k, v, live, carry, softcap: float):
     return acc * alpha + pv, m_new, l
 
 
+def _init_carry(b, kh, r, dh, device):
+    """Empty online-softmax state (acc, m, l) of R rows."""
+    return (torch.zeros((b, kh, r, dh), dtype=torch.float32, device=device),
+            torch.full((b, kh, r, 1), _NEG_INF, dtype=torch.float32,
+                       device=device),
+            torch.zeros((b, kh, r, 1), dtype=torch.float32, device=device))
+
+
 def flash_decode_plain(q, k_codes, k_scale, v_codes, v_scale, pos: int,
                        pad: Optional[torch.Tensor] = None,
                        softcap: float = 0.0,
@@ -61,11 +81,7 @@ def flash_decode_plain(q, k_codes, k_scale, v_codes, v_scale, pos: int,
     t = k_codes.shape[1]
     blk = default_kv_block(t) if blk is None else blk
     qf = q.float() * (1.0 / math.sqrt(dh))
-    acc = torch.zeros((b, kh, g, dh), dtype=torch.float32, device=q.device)
-    m = torch.full((b, kh, g, 1), _NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, kh, g, 1), dtype=torch.float32, device=q.device)
-    carry = (acc, m, l)
+    carry = _init_carry(b, kh, g, dh, q.device)
     with no_tf32():
         for i in range((pos + blk) // blk):          # ceil((pos+1)/blk)
             sl = slice(i * blk, (i + 1) * blk)
@@ -82,14 +98,114 @@ def flash_decode_plain(q, k_codes, k_scale, v_codes, v_scale, pos: int,
     return acc / l
 
 
+def _paged_rows_plain(qf, k_codes, k_scale, v_codes, v_scale, page_table,
+                      horizon, n_live: int, softcap: float) -> torch.Tensor:
+    """Online softmax of query rows qf (B, Kh, R, Dh), pre-scaled, over
+    the first ``n_live`` logical blocks of each request's page-table row;
+    ``horizon`` (B, 1, R|1, 1) is each row's last visible slot."""
+    b, kh, r, dh = qf.shape
+    psize = k_codes.shape[1]
+    carry = _init_carry(b, kh, r, dh, qf.device)
+    with no_tf32():
+        for t in range(n_live):
+            pg = page_table[:, t].long()
+            kpos = torch.arange(t * psize, (t + 1) * psize, device=qf.device)
+            live = kpos[None, None, None, :] <= horizon
+            carry = _online_softmax_block(
+                qf, dequant_kv_ref(k_codes[pg], k_scale[pg]),
+                dequant_kv_ref(v_codes[pg], v_scale[pg]), live, carry,
+                softcap)
+    acc, _, l = carry
+    return acc / l
+
+
+def paged_flash_decode_plain(q, k_codes, k_scale, v_codes, v_scale,
+                             page_table, positions,
+                             softcap: float = 0.0) -> torch.Tensor:
+    """The paged decode kernel's plain version (shapes as in
+    :func:`paged_flash_decode`): the trip count is the longest request's
+    live block count, read from ``positions`` on the host; blocks past a
+    shorter request's prefix are exact no-ops for its rows."""
+    dh = q.shape[-1]
+    psize = k_codes.shape[1]
+    qf = q.float() * (1.0 / math.sqrt(dh))
+    n_live = (int(positions.max()) + psize) // psize
+    return _paged_rows_plain(qf, k_codes, k_scale, v_codes, v_scale,
+                             page_table, positions[:, None, None, None],
+                             n_live, softcap)
+
+
+def paged_flash_prefill_plain(q, k_codes, k_scale, v_codes, v_scale,
+                              page_table, start,
+                              softcap: float = 0.0) -> torch.Tensor:
+    """The paged prefill kernel's plain version (shapes as in
+    :func:`paged_flash_prefill`): the chunk's C*G query rows of each
+    (b, kv-head) go through the decode block step as one row set."""
+    b, c, kh, g, dh = q.shape
+    psize = k_codes.shape[1]
+    qf = q.float().permute(0, 2, 1, 3, 4).reshape(b, kh, c * g, dh) \
+        * (1.0 / math.sqrt(dh))
+    rows = torch.arange(c * g, device=q.device) // g
+    horizon = (start[:, None] + rows[None])[:, None, :, None]
+    # a padded final chunk may reach past the table: its pad rows are
+    # never read back, and real rows never need those blocks
+    n_live = min((int(start.max()) + c + psize - 1) // psize,
+                 page_table.shape[1])
+    out = _paged_rows_plain(qf, k_codes, k_scale, v_codes, v_scale,
+                            page_table, horizon, n_live, softcap)
+    return out.reshape(b, kh, c, g, dh).permute(0, 2, 1, 3, 4)
+
+
+_ARGTYPES = {
+    "flash_decode": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+    "paged_flash_decode": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+    "paged_flash_prefill": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+}
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
-    fn = lib.flash_decode
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _check_pool(k_codes, k_scale, v_codes, v_scale, kh: int, dh: int):
+    """(page, Gs) of a posit8 pool (P, page, Kh, Dh) / (P, page, Kh, Gs)."""
+    p, page = k_codes.shape[:2]
+    gs = k_scale.shape[-1]
+    if k_codes.shape != (p, page, kh, dh) or v_codes.shape != k_codes.shape \
+            or k_scale.shape != (p, page, kh, gs) \
+            or v_scale.shape != k_scale.shape or dh % gs:
+        raise ValueError(
+            f"inconsistent pool shapes: codes {tuple(k_codes.shape)}, "
+            f"scales {tuple(k_scale.shape)} for Kh={kh}, Dh={dh}")
+    return page, gs
+
+
+def _cuda_operands(q, named, index_names=()):
+    """float32 contiguous q; raises unless every operand (None: absent)
+    is a contiguous tensor of the kernel's type on q's device: uint8
+    codes, bfloat16 scales, int32 ``index_names``."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, not {q.dtype}")
+    want = {"k_codes": torch.uint8, "v_codes": torch.uint8,
+            "k_scale": torch.bfloat16, "v_scale": torch.bfloat16,
+            **{n: torch.int32 for n in index_names}}
+    for name, x in named.items():
+        if x is None:
+            continue
+        if x.dtype != want[name]:
+            raise TypeError(f"{name} must be {want[name]}, not {x.dtype}")
+        if x.device != q.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+    return q.float().contiguous()
 
 
 def flash_decode(q: torch.Tensor, k_codes: torch.Tensor,
@@ -122,20 +238,11 @@ def flash_decode(q: torch.Tensor, k_codes: torch.Tensor,
                                   pad, softcap, blk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or k_codes.dtype != torch.uint8 or v_codes.dtype != torch.uint8 \
-            or k_scale.dtype != torch.bfloat16 \
-            or v_scale.dtype != torch.bfloat16:
-        raise TypeError("flash_decode takes float32/bfloat16 q, uint8 codes "
-                        "and bfloat16 scales")
-    if pad is not None and (pad.dtype != torch.int32 or pad.shape != (b,)):
-        raise TypeError("pad must be a (B,) int32 tensor")
-    q = q.float().contiguous()
-    for name, x in (("k_codes", k_codes), ("k_scale", k_scale),
-                    ("v_codes", v_codes), ("v_scale", v_scale),
-                    ("pad", pad)):
-        if x is not None and (x.device != q.device or not x.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous on {q.device}")
+    if pad is not None and pad.shape != (b,):
+        raise ValueError("pad must be a (B,) tensor")
+    q = _cuda_operands(q, dict(k_codes=k_codes, k_scale=k_scale,
+                               v_codes=v_codes, v_scale=v_scale, pad=pad),
+                       ("pad",))
     out = torch.empty((b, kh, g, dh), dtype=torch.float32, device=q.device)
     err = _lib().flash_decode(
         q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
@@ -150,3 +257,97 @@ def flash_decode(q: torch.Tensor, k_codes: torch.Tensor,
 
 
 flash_decode.launches = 0
+
+
+def paged_flash_decode(q: torch.Tensor, k_codes: torch.Tensor,
+                       k_scale: torch.Tensor, v_codes: torch.Tensor,
+                       v_scale: torch.Tensor, page_table: torch.Tensor,
+                       positions: torch.Tensor,
+                       softcap: float = 0.0) -> torch.Tensor:
+    """GQA decode attention of one new token per request over a paged
+    posit8 pool.
+
+    q (B, Kh, G, Dh) float32/bfloat16; pool codes (P, page, Kh, Dh) uint8
+    and scales (P, page, Kh, Gs) bfloat16; page_table (B, NP) int32 maps
+    request b's logical block t to a pool page; positions (B,) int32:
+    request b attends to logical slots [0, positions[b]].  Returns
+    (B, Kh, G, Dh) f32.  Positions and page ids are the caller's to keep
+    in range (a position below NP * page, a page below P)."""
+    b, kh, g, dh = q.shape
+    _check_pool(k_codes, k_scale, v_codes, v_scale, kh, dh)
+    if page_table.dim() != 2 or page_table.shape[0] != b \
+            or positions.shape != (b,):
+        raise ValueError(f"page_table {tuple(page_table.shape)} / positions "
+                         f"{tuple(positions.shape)} do not match B={b}")
+    if q.device.type == "cpu":
+        return paged_flash_decode_plain(q, k_codes, k_scale, v_codes, v_scale,
+                                        page_table, positions, softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_decode runs on cuda or cpu, not "
+                         f"{q.device}")
+    q = _cuda_operands(q, dict(k_codes=k_codes, k_scale=k_scale,
+                               v_codes=v_codes, v_scale=v_scale,
+                               page_table=page_table, positions=positions),
+                       ("page_table", "positions"))
+    page, gs = k_codes.shape[1], k_scale.shape[-1]
+    out = torch.empty((b, kh, g, dh), dtype=torch.float32, device=q.device)
+    err = _lib().paged_flash_decode(
+        q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
+        v_codes.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
+        positions.data_ptr(), out.data_ptr(), b, page_table.shape[1], page,
+        kh, g, dh, gs, float(softcap), 1.0 / math.sqrt(dh),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_flash_decode launch failed: CUDA error "
+                           f"{err}")
+    paged_flash_decode.launches += 1
+    return out
+
+
+paged_flash_decode.launches = 0
+
+
+def paged_flash_prefill(q: torch.Tensor, k_codes: torch.Tensor,
+                        k_scale: torch.Tensor, v_codes: torch.Tensor,
+                        v_scale: torch.Tensor, page_table: torch.Tensor,
+                        start: torch.Tensor,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Paged chunk-prefill attention over a posit8 pool.
+
+    q (B, C, Kh, G, Dh) float32/bfloat16: one chunk of C queries per
+    request at absolute positions ``start[b] .. start[b] + C - 1``; pool,
+    page table and types as in :func:`paged_flash_decode`; start (B,)
+    int32.  Query ``i`` of request b attends causally to logical slots
+    [0, start[b] + i].  Returns (B, C, Kh, G, Dh) f32."""
+    b, c, kh, g, dh = q.shape
+    _check_pool(k_codes, k_scale, v_codes, v_scale, kh, dh)
+    if page_table.dim() != 2 or page_table.shape[0] != b \
+            or start.shape != (b,):
+        raise ValueError(f"page_table {tuple(page_table.shape)} / start "
+                         f"{tuple(start.shape)} do not match B={b}")
+    if q.device.type == "cpu":
+        return paged_flash_prefill_plain(q, k_codes, k_scale, v_codes,
+                                         v_scale, page_table, start, softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_prefill runs on cuda or cpu, not "
+                         f"{q.device}")
+    q = _cuda_operands(q, dict(k_codes=k_codes, k_scale=k_scale,
+                               v_codes=v_codes, v_scale=v_scale,
+                               page_table=page_table, start=start),
+                       ("page_table", "start"))
+    page, gs = k_codes.shape[1], k_scale.shape[-1]
+    out = torch.empty((b, c, kh, g, dh), dtype=torch.float32, device=q.device)
+    err = _lib().paged_flash_prefill(
+        q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
+        v_codes.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
+        start.data_ptr(), out.data_ptr(), b, c, page_table.shape[1], page,
+        kh, g, dh, gs, float(softcap), 1.0 / math.sqrt(dh),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_flash_prefill launch failed: CUDA error "
+                           f"{err}")
+    paged_flash_prefill.launches += 1
+    return out
+
+
+paged_flash_prefill.launches = 0

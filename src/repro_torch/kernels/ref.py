@@ -18,8 +18,9 @@ from ..core import quant
 from ..core.formats import FormatSpec
 from ..core.packing import unpack
 
-__all__ = ["no_tf32", "dequant_ref", "rmmec_matmul_ref", "dequant_kv_ref",
-           "flash_decode_ref"]
+__all__ = ["no_tf32", "dequant_ref", "rmmec_matmul_ref", "scale_cols",
+           "dequant_kv_ref",
+           "flash_decode_ref", "paged_flash_decode_ref", "paged_prefill_ref"]
 
 
 @contextlib.contextmanager
@@ -56,11 +57,17 @@ def rmmec_matmul_ref(x: torch.Tensor, w_words: torch.Tensor,
         return x.float() @ w[: x.shape[-1]]
 
 
+def scale_cols(scale: torch.Tensor, dh: int) -> torch.Tensor:
+    """(..., Gs) KV scales -> one multiplier per column (..., Dh); each
+    scale repeats over its Dh / Gs columns (an expand, so no host sync)."""
+    *lead, gs = scale.shape
+    return scale[..., None].expand(*lead, gs, dh // gs).reshape(*lead, dh)
+
+
 def dequant_kv_ref(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """(..., Dh) posit8 codes + (..., Gs) scales -> (..., Dh) f32."""
-    dh, gs = codes.shape[-1], scale.shape[-1]
     x = codec_mod.decode(fmt.POSIT8, codes.to(torch.int32))
-    return x * torch.repeat_interleave(scale.float(), dh // gs, dim=-1)
+    return x * scale_cols(scale.float(), codes.shape[-1])
 
 
 def flash_decode_ref(q, k_codes, k_scale, v_codes, v_scale, pos: int,
@@ -83,3 +90,55 @@ def flash_decode_ref(q, k_codes, k_scale, v_codes, v_scale, pos: int,
         s = torch.where(live, s, -1e30)
         p = torch.softmax(s, dim=-1)
         return torch.einsum("bkgt,btkd->bkgd", p, v)
+
+
+def _gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """Pool (P, page, Kh, X) through a (B, NP) page table -> the
+    request-contiguous (B, NP * page, Kh, X) cache."""
+    b, npp = page_table.shape
+    x = pool[page_table.long()]
+    return x.reshape(b, npp * pool.shape[1], *pool.shape[2:])
+
+
+def _gathered_kv(k_codes, k_scale, v_codes, v_scale, page_table):
+    return (dequant_kv_ref(_gather_pages(k_codes, page_table),
+                           _gather_pages(k_scale, page_table)),
+            dequant_kv_ref(_gather_pages(v_codes, page_table),
+                           _gather_pages(v_scale, page_table)))
+
+
+def paged_flash_decode_ref(q, k_codes, k_scale, v_codes, v_scale, page_table,
+                           positions, softcap: float = 0.0) -> torch.Tensor:
+    """Naive oracle of the paged decode kernel: gather every request's
+    pages into a contiguous cache, then one masked softmax per request
+    at its own ``positions[b]``."""
+    dh = q.shape[-1]
+    k, v = _gathered_kv(k_codes, k_scale, v_codes, v_scale, page_table)
+    with no_tf32():
+        s = torch.einsum("bkgd,btkd->bkgt", q.float(), k) / math.sqrt(dh)
+        if softcap > 0.0:
+            s = torch.tanh(s / softcap) * softcap
+        tpos = torch.arange(k.shape[1], device=q.device)
+        live = tpos[None, None, None, :] <= positions[:, None, None, None]
+        p = torch.softmax(torch.where(live, s, -1e30), dim=-1)
+        return torch.einsum("bkgt,btkd->bkgd", p, v)
+
+
+def paged_prefill_ref(q, k_codes, k_scale, v_codes, v_scale, page_table,
+                      start, softcap: float = 0.0) -> torch.Tensor:
+    """Naive oracle of the paged chunk-prefill kernel: gather, then one
+    causally masked softmax per (request, chunk row) -- row ``i`` of
+    request ``b`` attends to logical slots [0, start[b] + i].  q
+    (B, C, Kh, G, Dh) -> (B, C, Kh, G, Dh) f32."""
+    c, dh = q.shape[1], q.shape[-1]
+    k, v = _gathered_kv(k_codes, k_scale, v_codes, v_scale, page_table)
+    with no_tf32():
+        s = torch.einsum("bqkgd,btkd->bkgqt", q.float(), k) / math.sqrt(dh)
+        if softcap > 0.0:
+            s = torch.tanh(s / softcap) * softcap
+        qpos = start[:, None] + torch.arange(c, device=q.device)
+        live = torch.arange(k.shape[1], device=q.device)[None, None, None,
+                                                         None, :] \
+            <= qpos[:, None, None, :, None]
+        p = torch.softmax(torch.where(live, s, -1e30), dim=-1)
+        return torch.einsum("bkgqt,btkd->bqkgd", p, v)

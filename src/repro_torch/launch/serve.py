@@ -1,8 +1,19 @@
-"""Serving CLI of the port: static batched generation with the packed
-weight plane and an optional posit8 KV cache.
+"""Serving CLI of the port: static batched generation, or continuous
+batching over the paged posit8 KV pool, with the packed weight plane.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
       --policy mixed --batch 8 --prompt-len 128 --steps 32 --quantized-kv
+
+``--continuous`` serves a ragged request mix (2 x ``--batch`` requests
+around the nominal prompt and step counts) through ``ContinuousEngine``:
+FIFO admission against a pool of ``--n-pages`` pages, one batched decode
+dispatch for all running requests.  ``--prefill-chunk N`` prefills in
+chunks of N tokens, ``--prefix-cache`` gives every prompt a shared
+one-page preamble served from the pool's prefix cache, and
+``--decode-steps K`` runs K decode+sample iterations per dispatch.
+
+  ... --continuous --batch 8 --n-pages 48 [--page-size 16]
+      [--prefill-chunk 16] [--prefix-cache] [--decode-steps 4]
 
 It runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path
 (use ``--reduced`` there).  Weights are random, drawn from ``--seed``.
@@ -20,36 +31,10 @@ from .. import resolve_device
 from ..configs import get_config
 from ..core.policy import PrecisionPolicy
 from ..models import zoo
-from ..serve.engine import ServeEngine
+from ..serve.engine import ContinuousEngine, ServeEngine
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-0.5b")
-    ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--policy", default="mixed",
-                    help="mixed (the paper's posit8/FP4 scheme), a format "
-                         "name for a uniform policy, or fp32/none")
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=16)
-    ap.add_argument("--steps", type=int, default=32)
-    ap.add_argument("--quantized-kv", action="store_true")
-    ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default=None,
-                    help="cuda (default) or cpu")
-    args = ap.parse_args()
-
-    device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    gen = torch.Generator(device).manual_seed(args.seed)
-    params = zoo.init_model(cfg, gen)
-    policy = None
-    if args.policy not in ("fp32", "none"):
-        policy = (PrecisionPolicy.paper_mixed() if args.policy == "mixed"
-                  else PrecisionPolicy.uniform(args.policy))
+def _static(args, cfg, params, policy, device, gen) -> None:
     eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.steps + 8,
                       quantized_kv=args.quantized_kv, policy=policy,
                       device=device)
@@ -62,6 +47,122 @@ def main() -> None:
     print(f"generated {out.shape} in {dt:.2f}s "
           f"({args.batch * args.steps / dt:.1f} tok/s) on {device}")
     print(out[:, args.prompt_len:][:2])
+
+
+def _continuous(args, cfg, params, policy, device) -> None:
+    from ..kernels.flash_decode import default_kv_block
+    rng = np.random.default_rng(args.seed)
+    max_len = args.prompt_len + args.steps + 8
+    page_size = args.page_size
+    if args.prefill_chunk and page_size is None:
+        page_size = args.prefill_chunk       # chunk == k * page, k = 1
+    if args.prefix_cache:
+        # the shared preamble rides on top of the nominal prompt length
+        if page_size is None:
+            page_size = default_kv_block(max_len)
+        max_len += page_size
+    # the page table maps whole pages and chunks divide max_len: round up
+    for unit in (args.prefill_chunk, page_size):
+        if unit and max_len % unit:
+            max_len += unit - max_len % unit
+    eng = ContinuousEngine(
+        cfg, params, n_pages=args.n_pages, page_size=page_size,
+        max_batch=args.batch, max_len=max_len, policy=policy,
+        temperature=args.temperature, seed=args.seed,
+        prefill_chunk_tokens=args.prefill_chunk,
+        prefix_cache=args.prefix_cache, decode_steps=args.decode_steps,
+        device=device)
+    preamble = rng.integers(0, cfg.vocab, (eng.page_size,)) \
+        if args.prefix_cache else None
+    rids = []
+    for _ in range(2 * args.batch):
+        plen = max(1, args.prompt_len - int(rng.integers(0, 4)))
+        steps = max(1, args.steps - int(rng.integers(0, args.steps // 2 + 1)))
+        prompt = rng.integers(0, cfg.vocab, (plen,))
+        if preamble is not None:
+            prompt = np.concatenate([preamble, prompt])
+            steps = max(1, min(steps, max_len - prompt.size))
+        rids.append(eng.submit(prompt, steps))
+    t0 = time.perf_counter()
+    eng.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    sched = eng.scheduler
+    toks = sum(len(sched.finished[r].generated) for r in rids)
+    print(f"served {len(rids)} requests / {toks} tokens in {dt:.2f}s "
+          f"({toks / dt:.1f} tok/s) over {eng.steps_run} engine steps on "
+          f"{device}")
+    print(f"decode loop: K={eng.decode_steps}, {eng.decode_dispatches} "
+          f"dispatches, {eng.page_table_uploads} page-table uploads, "
+          f"{eng.token_host_bytes} token bytes to host")
+    print(f"pool: {eng.pool.n_pages} pages x {eng.pool.page_size} slots, "
+          f"peak used {eng.pool.alloc_peak}, preemptions "
+          f"{sched.preemption_count} (mid-prefill "
+          f"{sched.prefill_preemptions}, wasted prefill tokens "
+          f"{sched.wasted_prefill_tokens})")
+    chunk = eng.prefill_chunk_tokens
+    print(f"prefill: {f'chunked, {chunk} tokens/step' if chunk else 'monolithic'}"
+          f" ({eng.prefill_context} context), {eng.prefill_tokens_computed} "
+          f"tokens computed")
+    if args.prefix_cache:
+        px = sched.prefix
+        print(f"prefix cache: {px.hits} hits, {px.hit_tokens} prefill tokens "
+              f"served from shared pages, {len(px)} pages cached, "
+              f"{px.evictions} evictions")
+    for r in rids[:2]:
+        print(f"  req {r}: {np.asarray(sched.finished[r].generated)}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--policy", default="mixed",
+                    help="mixed (the paper's posit8/FP4 scheme), a format "
+                         "name for a uniform policy, or fp32/none")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--quantized-kv", action="store_true",
+                    help="posit8 KV cache of the static engine (the "
+                         "continuous engine always pages posit8 KV)")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve through the paged-KV ContinuousEngine")
+    ap.add_argument("--n-pages", type=int, default=48,
+                    help="paged pool size (allocatable pages)")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="tokens per page (default: the decode KV block, "
+                         "or --prefill-chunk when that is set)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill: max prefill tokens one engine "
+                         "step may process (default: monolithic)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share whole common-preamble pages between "
+                         "requests; the mix gets a one-page shared preamble")
+    ap.add_argument("--decode-steps", type=int, default=1,
+                    help="decode+sample iterations per dispatch "
+                         "(temperature-0 output is the same for every K)")
+    args = ap.parse_args()
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    gen = torch.Generator(device).manual_seed(args.seed)
+    params = zoo.init_model(cfg, gen)
+    policy = None
+    if args.policy not in ("fp32", "none"):
+        policy = (PrecisionPolicy.paper_mixed() if args.policy == "mixed"
+                  else PrecisionPolicy.uniform(args.policy))
+    if args.continuous:
+        _continuous(args, cfg, params, policy, device)
+    else:
+        _static(args, cfg, params, policy, device, gen)
 
 
 if __name__ == "__main__":

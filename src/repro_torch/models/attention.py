@@ -1,15 +1,18 @@
-"""GQA attention: prefill over a full sequence and one-token decode over a
-KV cache (the counterpart of ``repro.models.attention``, dense serving
-path).
+"""GQA attention: prefill over a full sequence, chunk prefill, and
+one-token decode over a contiguous or paged KV cache (the counterpart of
+``repro.models.attention``, dense serving path).
 
 Prefill is plain torch: one causal softmax block when the sequence fits
 ``cfg.seq_chunk`` (or does not divide into chunks), else an online
 softmax over KV chunks -- the reference's two paths with its dtypes.
 The KV cache is bf16 or posit8 codes with bf16 po2 scales grouped along
-Dh.  Quantized decode goes through ``kernels.flash_decode``, which
-launches the CUDA kernel on a CUDA cache and runs its plain blocked loop
-on a CPU cache.  Decode writes the new token into the cache in place
-(the reference returns an updated copy); the caller owns the cache.
+Dh.  Quantized attention goes through ``kernels.flash_decode``, whose
+wrappers launch the CUDA kernels on a CUDA cache and run their plain
+blocked loops on a CPU cache: ``flash_decode`` for a contiguous cache,
+``paged_flash_decode`` / ``paged_flash_prefill`` for the paged pool of
+continuous serving.  Decode and paged chunk prefill write the new
+tokens' codes into the cache or pool in place (the reference returns an
+updated copy); the caller owns the cache.
 """
 
 from __future__ import annotations
@@ -22,12 +25,18 @@ import torch
 from ..core import codec as codec_mod
 from ..core import formats as fmt
 from ..core import quant
-from ..kernels.flash_decode import flash_decode, flash_decode_plain
-from ..kernels.ref import dequant_kv_ref
+from ..kernels.flash_decode import (flash_decode, flash_decode_plain,
+                                    paged_flash_decode,
+                                    paged_flash_decode_plain,
+                                    paged_flash_prefill,
+                                    paged_flash_prefill_plain)
+from ..kernels.ref import dequant_kv_ref, scale_cols
 from . import layers as L
 
-__all__ = ["attn_init", "attn_apply", "attn_decode", "quantize_kv",
-           "dequantize_kv", "kv_scale_cols", "decode_quantized_blocks"]
+__all__ = ["attn_init", "attn_apply", "attn_decode", "attn_prefill_chunk",
+           "quantize_kv", "dequantize_kv", "kv_scale_cols",
+           "decode_quantized_blocks", "paged_decode_blocked",
+           "paged_prefill_blocked"]
 
 _NEG = -1e30
 
@@ -147,8 +156,7 @@ def quantize_kv(k: torch.Tensor, group_size: Optional[int] = None):
     g = None if gs == 1 else group_size
     s = quant.group_scales(fmt.POSIT8, k[..., None].float(), g,
                            method="absmax_po2")[..., 0]
-    codes = codec_mod.encode(
-        fmt.POSIT8, k.float() / torch.repeat_interleave(s, dh // gs, dim=-1))
+    codes = codec_mod.encode(fmt.POSIT8, k.float() / scale_cols(s, dh))
     return codes.to(torch.uint8), s.to(torch.bfloat16)
 
 
@@ -187,12 +195,142 @@ def decode_quantized_blocks(q4, layer_cache, pos: int, softcap: float = 0.0,
                               layer_cache["v_scale"], pos, pad, softcap, blk)
 
 
+def paged_decode_blocked(q4, layer_cache, page_table, positions,
+                         softcap: float = 0.0):
+    """Paged decode over a posit8 pool in plain torch: the online softmax
+    over each request's live pages that the paged kernel's CPU path runs
+    (``kernels.flash_decode.paged_flash_decode_plain``).  With page ==
+    blk it equals :func:`decode_quantized_blocks` bitwise.
+    q4 (B, Kh, G, Dh); pool leaves (P, page, Kh, X); page_table (B, NP);
+    positions (B,) -> (B, Kh, G, Dh) f32."""
+    return paged_flash_decode_plain(q4, layer_cache["k_codes"],
+                                    layer_cache["k_scale"],
+                                    layer_cache["v_codes"],
+                                    layer_cache["v_scale"], page_table,
+                                    positions, softcap)
+
+
+def paged_prefill_blocked(q5, layer_cache, page_table, start,
+                          softcap: float = 0.0):
+    """Paged chunk-prefill attention in plain torch
+    (``kernels.flash_decode.paged_flash_prefill_plain``): C queries at
+    ``start[b] .. start[b]+C-1`` attend causally through the page table.
+    q5 (B, C, Kh, G, Dh) -> (B, C, Kh, G, Dh) f32."""
+    return paged_flash_prefill_plain(q5, layer_cache["k_codes"],
+                                     layer_cache["k_scale"],
+                                     layer_cache["v_codes"],
+                                     layer_cache["v_scale"], page_table,
+                                     start, softcap)
+
+
+def _pool_write(pool, k, v, index) -> None:
+    """Quantize k/v (N, ..., Kh, Dh) and write their codes and scales into
+    the pool leaves at ``pool[key][index]``, in place."""
+    group = _cache_group(pool)
+    for name, new in (("k", k), ("v", v)):
+        codes, scale = quantize_kv(new, group)
+        pool[f"{name}_codes"][index] = codes
+        pool[f"{name}_scale"][index] = scale
+
+
+def attn_prefill_chunk(p, x, cfg, positions, ctx):
+    """Causal self-attention of ONE prefill chunk; x (B, C, D) at absolute
+    ``positions`` (B, C).  ``ctx`` is what the chunk attends to besides
+    itself:
+
+      * CARRY ``{"k", "v"}`` (B, T, Kh, Dh) bf16: the already-prefilled
+        prefix, possibly preallocated past ``start`` (dead slots are
+        masked).  Returns (out, {"k", "v"}) with the chunk's own bf16 kv.
+      * PAGED (the dict carries ``page_table``): the pool leaves and
+        (B, NP) page table.  The chunk's kv is quantized and written into
+        its pages first, in place, then attention reads prefix + chunk
+        back through the page table.  Returns (out, None).
+    """
+    if "page_table" in ctx:
+        return _attn_prefill_paged(p, x, cfg, positions, ctx), None
+    b, c, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    g = cfg.n_heads // cfg.n_kv_heads
+    hd = q.shape[-1]
+    q5 = q.reshape(b, c, cfg.n_kv_heads, g, hd)
+    t = ctx["k"].shape[1]
+    kk = torch.cat([ctx["k"].to(k.dtype), k], dim=1) if t else k
+    vv = torch.cat([ctx["v"].to(v.dtype), v], dim=1) if t else v
+    bias = _causal_bias(c, t + c, t, x.device)
+    if t:
+        # slots of a preallocated carry at or past the chunk's start hold
+        # no context yet; live slots add exactly 0.0
+        kidx = torch.arange(t + c, device=x.device)
+        ctx_live = (kidx[None] < positions[:, :1]) | (kidx[None] >= t)
+        bias = bias + torch.where(ctx_live, 0.0, _NEG)[:, None, None, None, :]
+    out = _attend_block(q5, kk, vv, bias).reshape(b, c, cfg.n_heads * hd)
+    return L.dense(p["wo"], out), {"k": k.to(torch.bfloat16),
+                                   "v": v.to(torch.bfloat16)}
+
+
+def _attn_prefill_paged(p, x, cfg, positions, ctx):
+    """Paged chunk prefill: write the chunk's kv into its pages
+    (page-aligned chunk slots), then attend to prefix + chunk through
+    the page table."""
+    b, c, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    psize = ctx["k_codes"].shape[1]
+    if c % psize:
+        raise ValueError(f"chunk of {c} tokens is not whole pages of {psize}")
+    page_table = ctx["page_table"]
+    start = positions[:, 0].to(torch.int32).contiguous()
+    nblk = c // psize
+    npp = page_table.shape[1]
+    blk_ids = start[:, None].long() // psize \
+        + torch.arange(nblk, device=x.device)[None]
+    # pad blocks of a final chunk past the table go to the parking page
+    pgs = torch.where(blk_ids < npp,
+                      page_table.gather(1, blk_ids.clamp(max=npp - 1)),
+                      0).reshape(-1).long()
+    kh, hd = cfg.n_kv_heads, q.shape[-1]
+    _pool_write(ctx, k.reshape(b * nblk, psize, kh, hd),
+                v.reshape(b * nblk, psize, kh, hd), pgs)
+    q5 = q.reshape(b, c, kh, cfg.n_heads // kh, hd)
+    out5 = paged_flash_prefill(q5, ctx["k_codes"], ctx["k_scale"],
+                               ctx["v_codes"], ctx["v_scale"], page_table,
+                               start, softcap=cfg.attn_logit_softcap)
+    return L.dense(p["wo"], out5.to(x.dtype).reshape(b, c, cfg.n_heads * hd))
+
+
+def _attn_decode_paged(p, x, cfg, layer_cache):
+    """Paged one-token decode: each request writes and reads posit8 pages
+    through its page-table row at its OWN position (``page_table``
+    (B, NP) and ``positions`` (B,) ride in the layer cache).  The new
+    token's codes land at pool slot ``(page_table[b, pos_b // page],
+    pos_b % page)``, in place; attention runs over the live pages."""
+    b = x.shape[0]
+    page_table = layer_cache["page_table"]
+    positions = layer_cache["positions"]
+    q, k_new, v_new = _qkv(p, x, cfg, positions[:, None])
+    psize = layer_cache["k_codes"].shape[1]
+    pos = positions.long()
+    pg = page_table.gather(1, (pos // psize)[:, None])[:, 0].long()
+    _pool_write(layer_cache, k_new[:, 0], v_new[:, 0], (pg, pos % psize))
+    g = cfg.n_heads // cfg.n_kv_heads
+    hd = q.shape[-1]
+    out4 = paged_flash_decode(q.reshape(b, cfg.n_kv_heads, g, hd),
+                              layer_cache["k_codes"], layer_cache["k_scale"],
+                              layer_cache["v_codes"], layer_cache["v_scale"],
+                              page_table, positions,
+                              softcap=cfg.attn_logit_softcap)
+    return L.dense(p["wo"], out4.to(x.dtype).reshape(b, 1, cfg.n_heads * hd))
+
+
 def attn_decode(p, x, cfg, layer_cache, pos: int, pad=None):
     """One-token decode; x (B, 1, D), ``pos`` the slot being written.
     Updates ``layer_cache`` in place and returns the attention output.
     ``pad`` (B,) int32: left-pad widths of a ragged batch -- RoPE
     positions shift to ``pos - pad[b]`` and slots below ``pad[b]`` are
-    masked."""
+    masked.  A PAGED layer cache (it carries ``page_table`` and
+    ``positions``) decodes every request at its own position and
+    ignores ``pos``."""
+    if "page_table" in layer_cache:
+        return _attn_decode_paged(p, x, cfg, layer_cache)
     b = x.shape[0]
     if pad is None:
         positions = torch.full((b, 1), pos, dtype=torch.int32,

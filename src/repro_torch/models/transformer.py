@@ -4,7 +4,9 @@ family).
 Layer parameters are stacked ``(L, ...)`` leaves under ``params["layers"]``
 like the reference's scan layout, so ``PrecisionPolicy`` globs and the
 packed plane see the same tree; the forward walks the layers with a
-Python loop over slices in place of ``lax.scan``.  Other families raise.
+Python loop over slices in place of ``lax.scan``, and a paged cache's
+page table and positions go to every layer as they are.  Other
+families raise.
 """
 
 from __future__ import annotations
@@ -76,42 +78,80 @@ def _readout(p, x):
     return L.embed_logits(p["embed"], x)
 
 
-def lm_apply(p, batch, cfg, last_only: bool = False):
-    """Full-sequence forward (prefill).  Returns (logits, cache) with the
-    cache ``{"k", "v"}`` stacked (L, B, S, Kh, Dh) bf16.  ``last_only``
-    reads out the final position only (the one generation needs).
-    ``batch``: ``tokens`` (B, S), optional ``positions`` (B, S) and
-    ``kv_mask`` (B, S) bool for left-padded ragged batches."""
+def _pop_paged_meta(cache):
+    """Split a paged cache into (pool leaves, meta).  The paged serving
+    cache carries ONE ``page_table`` (B, NP) (and, for decode,
+    ``positions`` (B,)) at the top level, beside the L-stacked pool
+    leaves; it has no layer axis, so the layer loop hands the same
+    tensors to every layer instead of slicing them."""
+    if not (isinstance(cache, dict) and "page_table" in cache):
+        return cache, None
+    meta = {k: cache[k] for k in ("page_table", "positions") if k in cache}
+    return {k: v for k, v in cache.items() if k not in meta}, meta
+
+
+def _layer_cache(cache, i: int, meta):
+    lc = _layer(cache, i)
+    return lc if meta is None else dict(lc, **meta)
+
+
+def lm_apply(p, batch, cfg, last_only: bool = False, mode: str = "prefill",
+             cache=None):
+    """Full-sequence forward.  Returns (logits, cache).
+
+    ``mode="prefill"``: the cache is ``{"k", "v"}`` stacked
+    (L, B, S, Kh, Dh) bf16.  ``mode="prefill_chunk"``: one chunk at
+    ``batch["positions"]`` attends to ``cache`` -- a bf16 carry
+    ``{"k", "v"}`` (L, B, T, Kh, Dh), returning the chunk's own stacked
+    kv, or a paged pool with its ``page_table``, written in place and
+    returned.  ``last_only`` reads out the final position only (the one
+    generation needs).  ``batch``: ``tokens`` (B, S), optional
+    ``positions`` (B, S) and ``kv_mask`` (B, S) bool for left-padded
+    ragged batches."""
     _check_family(cfg)
+    if mode not in ("prefill", "prefill_chunk"):
+        raise ValueError(f"lm_apply mode {mode!r}: prefill or prefill_chunk")
     dtype = torch_dtype(cfg.dtype)
     tokens = batch["tokens"]
     x = L.embed(p["embed"], tokens, dtype)
     positions = batch.get("positions")
     kv_mask = batch.get("kv_mask")
+    cache, meta = _pop_paged_meta(cache)
     ks, vs = [], []
     for i in range(_n_layers(p["layers"])):
         lp = _layer(p["layers"], i)
-        h, (k, v) = A.attn_apply(lp["attn"], L.rmsnorm(lp["ln1"], x), cfg,
-                                 positions, kv_mask)
+        h = L.rmsnorm(lp["ln1"], x)
+        if mode == "prefill_chunk":
+            h, kv = A.attn_prefill_chunk(lp["attn"], h, cfg, positions,
+                                         _layer_cache(cache, i, meta))
+        else:
+            h, (k, v) = A.attn_apply(lp["attn"], h, cfg, positions, kv_mask)
+            kv = {"k": k, "v": v}
         x = x + h
         x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["ln2"], x), cfg.ffn_kind)
-        ks.append(k.to(torch.bfloat16))
-        vs.append(v.to(torch.bfloat16))
+        if kv is not None:
+            ks.append(kv["k"].to(torch.bfloat16))
+            vs.append(kv["v"].to(torch.bfloat16))
     if last_only:
         x = x[:, -1:]
+    if meta is not None:
+        return _readout(p, x), dict(cache, **meta)
     return _readout(p, x), {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def lm_decode(p, tokens, cfg, cache, pos: int, pad=None):
     """One decode step: tokens (B, 1) -> logits (B, 1, V).  ``cache`` is
-    updated in place (slot ``pos`` of every layer) and returned."""
+    updated in place (slot ``pos`` of every layer) and returned.  A
+    PAGED cache (pool leaves plus a top-level ``page_table`` and
+    ``positions``) decodes each request at its own position; ``pos`` is
+    then ignored."""
     _check_family(cfg)
     x = L.embed(p["embed"], tokens, torch_dtype(cfg.dtype))
+    layers, meta = _pop_paged_meta(cache)
     for i in range(_n_layers(p["layers"])):
         lp = _layer(p["layers"], i)
-        lc = _layer(cache, i)
-        x = x + A.attn_decode(lp["attn"], L.rmsnorm(lp["ln1"], x), cfg, lc,
-                              pos, pad)
+        x = x + A.attn_decode(lp["attn"], L.rmsnorm(lp["ln1"], x), cfg,
+                              _layer_cache(layers, i, meta), pos, pad)
         x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["ln2"], x), cfg.ffn_kind)
     return _readout(p, x), cache
 
