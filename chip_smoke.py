@@ -563,9 +563,7 @@ def phase_paged(summary, fails) -> None:
     lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, enable_gqa=True))
     live = sum(p_ + 1 for p_ in positions)
-    pages_live = sum(p_ // page + 1 for p_ in positions)
-    nbytes = (pages_live * page * slot_bytes + 2 * q.numel() * 4
-              + pt.numel() * 4 + b * 4)
+    nbytes = live * slot_bytes + 2 * q.numel() * 4 + pt.numel() * 4 + b * 4
     b_ms, b_by = bound_ms(nbytes, 4.0 * live * kh * g * dh, PEAK_FLOPS["f32"])
     log(f"[paged] time decode B={b} positions={positions}: kernel {ms:.4f} "
         f"ms, plain {plain:.4f} ms, library (SDPA, bf16, gathered "
@@ -586,8 +584,7 @@ def phase_paged(summary, fails) -> None:
     lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, enable_gqa=True))
     pairs = sum(start + i + 1 for i in range(c))
-    nbytes = (-(-(start + c) // page) * page * slot_bytes
-              + 2 * q5.numel() * 4 + npp * 4 + 4)
+    nbytes = (start + c) * slot_bytes + 2 * q5.numel() * 4 + npp * 4 + 4
     b_ms, b_by = bound_ms(nbytes, 4.0 * pairs * kh * g * dh, PEAK_FLOPS["f32"])
     log(f"[paged] time prefill B=1 C={c} start={start}: kernel {ms:.4f} ms, "
         f"plain {plain:.4f} ms, library (SDPA, bf16, causal mask) {lib:.4f} "

@@ -27,16 +27,13 @@ from ..core import formats as fmt
 from ..core import quant
 from ..kernels.flash_decode import (flash_decode, flash_decode_plain,
                                     paged_flash_decode,
-                                    paged_flash_decode_plain,
-                                    paged_flash_prefill,
-                                    paged_flash_prefill_plain)
+                                    paged_flash_prefill)
 from ..kernels.ref import dequant_kv_ref, scale_cols
 from . import layers as L
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "attn_prefill_chunk",
            "quantize_kv", "dequantize_kv", "kv_scale_cols",
-           "decode_quantized_blocks", "paged_decode_blocked",
-           "paged_prefill_blocked"]
+           "decode_quantized_blocks"]
 
 _NEG = -1e30
 
@@ -193,34 +190,6 @@ def decode_quantized_blocks(q4, layer_cache, pos: int, softcap: float = 0.0,
     return flash_decode_plain(q4, layer_cache["k_codes"],
                               layer_cache["k_scale"], layer_cache["v_codes"],
                               layer_cache["v_scale"], pos, pad, softcap, blk)
-
-
-def paged_decode_blocked(q4, layer_cache, page_table, positions,
-                         softcap: float = 0.0):
-    """Paged decode over a posit8 pool in plain torch: the online softmax
-    over each request's live pages that the paged kernel's CPU path runs
-    (``kernels.flash_decode.paged_flash_decode_plain``).  With page ==
-    blk it equals :func:`decode_quantized_blocks` bitwise.
-    q4 (B, Kh, G, Dh); pool leaves (P, page, Kh, X); page_table (B, NP);
-    positions (B,) -> (B, Kh, G, Dh) f32."""
-    return paged_flash_decode_plain(q4, layer_cache["k_codes"],
-                                    layer_cache["k_scale"],
-                                    layer_cache["v_codes"],
-                                    layer_cache["v_scale"], page_table,
-                                    positions, softcap)
-
-
-def paged_prefill_blocked(q5, layer_cache, page_table, start,
-                          softcap: float = 0.0):
-    """Paged chunk-prefill attention in plain torch
-    (``kernels.flash_decode.paged_flash_prefill_plain``): C queries at
-    ``start[b] .. start[b]+C-1`` attend causally through the page table.
-    q5 (B, C, Kh, G, Dh) -> (B, C, Kh, G, Dh) f32."""
-    return paged_flash_prefill_plain(q5, layer_cache["k_codes"],
-                                     layer_cache["k_scale"],
-                                     layer_cache["v_codes"],
-                                     layer_cache["v_scale"], page_table,
-                                     start, softcap)
 
 
 def _pool_write(pool, k, v, index) -> None:

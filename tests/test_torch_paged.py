@@ -105,7 +105,7 @@ def test_paged_prefill_vs_pallas_interpret_and_oracle(start, softcap, group):
 
 @pytest.mark.parametrize("case", ["decode", "prefill"])
 def test_plain_matches_reference_blocked_loops(case):
-    """The wrappers' CPU paths against the reference's XLA loops
+    """The plain versions against the reference's XLA loops
     (``paged_decode_blocked`` / ``paged_prefill_blocked``), which the JAX
     engine runs by default; the wrapper on a CPU tensor counts no
     launch and returns the plain version's result."""
@@ -113,23 +113,20 @@ def test_plain_matches_reference_blocked_loops(case):
     rng = np.random.default_rng(6)
     jcache = dict(zip(("k_codes", "k_scale", "v_codes", "v_scale"),
                       map(jnp.asarray, jpool)))
-    tcache = dict(zip(("k_codes", "k_scale", "v_codes", "v_scale"), tpool))
     if case == "decode":
         q = rng.normal(size=(B, KH, G, DH)).astype(np.float32)
         pos = np.asarray([9, 63, 30], np.int32)
         want = jA.paged_decode_blocked(jnp.asarray(q), jcache, jpt,
                                        jnp.asarray(pos), 30.0)
-        got = tA.paged_decode_blocked(torch.from_numpy(q), tcache, tpt,
-                                      torch.from_numpy(pos), 30.0)
-        fn, args = paged_flash_decode, (torch.from_numpy(pos), 30.0)
+        fn, plain = paged_flash_decode, paged_flash_decode_plain
     else:
         q = rng.normal(size=(B, 32, KH, G, DH)).astype(np.float32)
         pos = np.asarray([0, 32, 16], np.int32)
         want = jA.paged_prefill_blocked(jnp.asarray(q), jcache, jpt,
                                         jnp.asarray(pos), 30.0)
-        got = tA.paged_prefill_blocked(torch.from_numpy(q), tcache, tpt,
-                                       torch.from_numpy(pos), 30.0)
-        fn, args = paged_flash_prefill, (torch.from_numpy(pos), 30.0)
+        fn, plain = paged_flash_prefill, paged_flash_prefill_plain
+    args = (torch.from_numpy(pos), 30.0)
+    got = plain(torch.from_numpy(q), *tpool, tpt, *args)
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=RTOL, atol=ATOL)
     before = fn.launches
     assert torch.equal(fn(torch.from_numpy(q), *tpool, tpt, *args), got)
