@@ -34,7 +34,20 @@ and, for continuous batching over the paged posit8 KV pool:
       K=1 and K=4 decode steps per dispatch under the sync guard: equal
       tokens, a preemption and a prefix hit, exact launch counts;
   4b. the reduced config (float32): the carry context against the static
-      engine, the card against the CPU, and prefix cache on against off.
+      engine, the card against the CPU, and prefix cache on against off;
+
+and, for the paper's SIMD-MAC engine plane:
+
+  2c. ``dequant`` bit for bit against its plain version for every format
+      RMMEC decodes x {per-channel, group 32, group 64} at K=N=1024 and
+      on qwen2-0.5b's FP4 FFN slice (896 x 4864, stacked layout), and the
+      ``quire_dot`` limbs bit for bit against theirs (random 64 x 1024
+      codes with NaR, the cancellation case also against
+      ``core.quire.quire_dot_exact``, 4096 x 4096);
+  5.  the engine plane's entry point at its own full size: the Table II
+      and Table III bench twins (``repro_torch.benchmarks``) on the card,
+      their CSV rows logged, with exact launch counts of ``rmmec_matmul``,
+      ``dequant`` and ``quire_dot``.
 
 The last lines are the card's name and power limit, one JSON line with
 each kernel's launches, error and times, and ``{"ok": true, ...}``.
@@ -43,7 +56,10 @@ Without a CUDA card, or outside the repository, it exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import inspect
+import io
 import json
 import os
 import subprocess
@@ -65,6 +81,10 @@ RMMEC_TPU = "src/repro/kernels/rmmec_matmul.py:127"
 FLASH_TPU = "src/repro/kernels/flash_decode.py:203"
 PAGED_DECODE_TPU = "src/repro/kernels/flash_decode.py:289"
 PAGED_PREFILL_TPU = "src/repro/kernels/flash_decode.py:383"
+DEQUANT_SRC = "src/repro_torch/csrc/dequant.cu"
+DEQUANT_TPU = "src/repro/kernels/codec.py:45"
+QUIRE_SRC = "src/repro_torch/csrc/quire_dot.cu"
+QUIRE_TPU = "src/repro/kernels/quire_dot.py:65"
 
 
 def log(msg: str) -> None:
@@ -75,9 +95,14 @@ def _flush_l2(buf: torch.Tensor) -> None:
     buf.add_(1)   # touch 128 MB: evicts the 50 MB L2
 
 
+SPIN_CYCLES = 400_000  # ~0.2 ms of device time at the H100's clocks
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` in ms with a cold L2 before each call
-    (CUDA events around each call)."""
+    (CUDA events around each call).  A spin kernel after the flush keeps
+    the stream busy while the host issues ``fn``'s launches, so the
+    interval holds device work only, not the host's launch overhead."""
     buf = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
@@ -85,6 +110,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for i in range(iters):
         _flush_l2(buf)
+        torch.cuda._sleep(SPIN_CYCLES)
         starts[i].record()
         fn()
         ends[i].record()
@@ -647,12 +673,15 @@ def _serve_continuous(eng, reqs):
 
 
 def _launch_counters():
+    from repro_torch.kernels.codec import dequant
     from repro_torch.kernels.flash_decode import (
         flash_decode, paged_flash_decode, paged_flash_prefill)
+    from repro_torch.kernels.quire_dot import quire_dot
     from repro_torch.kernels.rmmec_matmul import rmmec_matmul
     return {"rmmec_matmul": rmmec_matmul, "flash_decode": flash_decode,
             "paged_flash_decode": paged_flash_decode,
-            "paged_flash_prefill": paged_flash_prefill}
+            "paged_flash_prefill": paged_flash_prefill,
+            "dequant": dequant, "quire_dot": quire_dot}
 
 
 def phase_continuous(summary, fails) -> None:
@@ -732,7 +761,7 @@ def phase_continuous(summary, fails) -> None:
         want = {"paged_flash_decode": n_layers * iters,
                 "paged_flash_prefill": n_layers * chunks,
                 "rmmec_matmul": 7 * n_layers * (iters + chunks),
-                "flash_decode": 0}
+                "flash_decode": 0, "dequant": 0, "quire_dot": 0}
         log(f"[cont] K={k} launches {launches}, expected {want}")
         for name, n in want.items():
             if launches[name] != n:
@@ -850,6 +879,183 @@ def phase_continuous_parity(fails) -> None:
         fails.append("continuous parity: no prefix hit")
 
 
+# ---------------------------------------------------------------------------
+# phase 2c: engine-plane kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+NO_LIBRARY = ("no single PyTorch call computes it (packed low-bit words "
+              "decoded and scaled; an exact integer posit8 dot)")
+
+
+def _dequant_case(tag, t, fails) -> float:
+    from repro_torch.kernels.codec import dequant, dequant_plain
+    k, n = t.shape
+    got = dequant(t.words, t.scales, t.spec, k, n)
+    want = dequant_plain(t.words, t.scales, t.spec, k, n)
+    torch.cuda.synchronize()
+    same = got.shape == (k, n) and torch.equal(got, want)
+    err = (got - want).abs().max().item() if got.shape == want.shape \
+        else float("inf")
+    log(f"[dequant] {tag} words={tuple(t.words.shape)} scales="
+        f"{tuple(t.scales.shape)} bitwise: {'ok' if same else 'MISS'} "
+        f"(max_abs_err {err:.3e})")
+    if not same:
+        fails.append(f"dequant {tag}")
+    return err
+
+
+def _dequant_times(t):
+    """(kernel ms, plain ms, bound ms, bound_by) of one dequant."""
+    from repro_torch.kernels.codec import dequant, dequant_plain
+    k, n = t.shape
+    ms = time_ms(lambda: dequant(t.words, t.scales, t.spec, k, n))
+    plain = time_ms(lambda: dequant_plain(t.words, t.scales, t.spec, k, n))
+    nbytes = t.words.numel() * 4 + t.scales.numel() * 4 + k * n * 4
+    return (ms, plain, *bound_ms(nbytes, float(k * n), PEAK_FLOPS["f32"]))
+
+
+def _quire_case(tag, a, b, fails, exact=None) -> float:
+    from repro_torch.kernels.ops import quire_combine
+    from repro_torch.kernels.quire_dot import (QUIRE_FRAC_BITS, quire_dot,
+                                               quire_dot_plain)
+    from repro_torch.kernels.ref import quire_dot_ref
+    hi, lo = quire_dot(a, b)
+    phi, plo = quire_dot_plain(a, b)
+    torch.cuda.synchronize()
+    same = torch.equal(hi, phi) and torch.equal(lo, plo)
+    # the limbs hold the float64 row sum exactly (exact below 2^40 terms)
+    value = hi[:, 0].double() + lo[:, 0].double() * 2.0 ** -QUIRE_FRAC_BITS
+    same_f64 = torch.equal(value, quire_dot_ref(a, b))
+    canonical = bool((lo >= 0).all() and (lo < 2 ** QUIRE_FRAC_BITS).all())
+    ok = same and same_f64 and canonical
+    msg = (f"[quire] {tag}: limbs bitwise vs plain {same}, == float64 row "
+           f"sum {same_f64}, 0 <= lo < 2^22 {canonical}")
+    if exact is not None:
+        got = float(quire_combine(hi, lo)[0])
+        ok = ok and got == exact
+        msg += f", combined {got!r} == quire_dot_exact {exact!r}: {got == exact}"
+    log(msg + (" ok" if ok else " MISS"))
+    if not ok:
+        fails.append(f"quire {tag}")
+    return float(max((hi - phi).abs().max().item(),
+                     (lo - plo).abs().max().item()))
+
+
+def phase_engine_kernels(summary, fails) -> None:
+    from repro_torch.core import formats as fmt
+    from repro_torch.core.quire import quire_dot_exact
+    from repro_torch.kernels.ops import pack_tensor
+    from repro_torch.kernels.quire_dot import quire_dot, quire_dot_plain
+    gen = torch.Generator("cuda").manual_seed(6)
+    max_err = 0.0
+    for spec in (fmt.FP4, fmt.POSIT4, fmt.POSIT8, fmt.POSIT16, fmt.FP8_E4M3,
+                 fmt.FP8_E5M2, fmt.FXP4, fmt.FXP8):
+        for group in (None, 32, 64):
+            w = torch.randn((1024, 1024), generator=gen, device="cuda")
+            t = pack_tensor(spec, w, group_size=group)
+            max_err = max(max_err, _dequant_case(
+                f"{spec.name:9s} g={str(group):4s} K=N=1024 2-D", t, fails))
+    # qwen2-0.5b's FFN gate slice under paper_mixed: FP4, per channel,
+    # stacked layout (K padded to nothing, N to the word)
+    w = torch.randn((2, 896, 4864), generator=gen, device="cuda") * 0.05
+    ffn = pack_tensor(fmt.FP4, w, group_size=None)[1]
+    max_err = max(max_err, _dequant_case("fp4 FFN slice 896x4864 stacked",
+                                         ffn, fails))
+    p8 = pack_tensor(fmt.POSIT8, torch.randn((1024, 1024), generator=gen,
+                                             device="cuda"))
+    # two rounds in turns show the spread; the second is the one recorded
+    for rnd in (1, 2):
+        for tag, t in (("posit8 K=N=1024 per-channel", p8),
+                       ("fp4 FFN slice 896x4864", ffn)):
+            ms, plain, b_ms, b_by = _dequant_times(t)
+            log(f"[dequant] time round {rnd} {tag}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}); library: "
+                f"none, {NO_LIBRARY}")
+            if rnd == 2 and t is p8:       # the bench's shape
+                summary["dequant"] = dict(
+                    max_abs_err=max_err, ms=ms, plain_ms=plain,
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+    rng = np.random.default_rng(6)
+    a = rng.integers(0, 256, (64, 1024))
+    b = rng.integers(0, 256, (64, 1024))
+    a[:, 0] = 128                               # NaR in every row
+    codes = [torch.tensor(x, dtype=torch.int32, device="cuda") for x in (a, b)]
+    q_err = _quire_case(f"random 64x1024 ({int((a == 128).sum())} + "
+                        f"{int((b == 128).sum())} NaR codes)", *codes, fails)
+    big, one, neg = (int(c) for c in fmt.encode_table(
+        fmt.POSIT8, torch.tensor([64.0, 1.0 / 64, -64.0])))
+    row = np.array([[big] + [one] * 512 + [neg]])
+    exact = quire_dot_exact(fmt.POSIT8, row[0], row[0])
+    rt = torch.tensor(row, dtype=torch.int32, device="cuda")
+    q_err = max(q_err, _quire_case("cancellation 64^2 + 512/64^4 + 64^2", rt,
+                                   rt, fails, exact))
+    a4 = torch.randint(0, 256, (4096, 4096), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    b4 = torch.randint(0, 256, (4096, 4096), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    q_err = max(q_err, _quire_case("random 4096x4096", a4, b4, fails))
+    for x, y in ((codes[0], codes[1]), (a4, b4)):
+        bsz, k = x.shape
+        ms = time_ms(lambda: quire_dot(x, y))
+        plain = time_ms(lambda: quire_dot_plain(x, y))
+        b_ms, b_by = bound_ms(2 * bsz * k * 4 + 2 * bsz * 4, 2.0 * bsz * k,
+                              PEAK_FLOPS["f32"])
+        log(f"[quire] time B={bsz} K={k}: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}); library: none, "
+            f"{NO_LIBRARY}")
+    summary["quire_dot"] = dict(   # the last: 4096 x 4096
+        max_abs_err=q_err, ms=ms, plain_ms=plain, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the engine plane at its own full size (the bench twins)
+# ---------------------------------------------------------------------------
+
+def phase_engine_plane(summary, fails) -> None:
+    from repro_torch.benchmarks import bench_coprocessor, bench_mac_engine
+    from repro_torch.benchmarks.common import time_call
+    params = inspect.signature(time_call).parameters
+    calls = params["warmup"].default + params["iters"].default
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            bench_mac_engine.run("cuda")
+            bench_coprocessor.run("cuda")
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"[bench] {line}")
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    rows = [ln.split(",", 2) for ln in buf.getvalue().splitlines()]
+    packed = (len(bench_mac_engine.GROUPS) * len(bench_mac_engine.SPECS)
+              + len(bench_coprocessor.ARRAYS) * len(bench_coprocessor.SPECS))
+    # each packed row: time_call's calls, then one checked product whose
+    # weight the decode kernel materializes; the quire row: time_call's
+    want = {"rmmec_matmul": packed * (calls + 1), "dequant": packed,
+            "quire_dot": calls, "flash_decode": 0, "paged_flash_decode": 0,
+            "paged_flash_prefill": 0}
+    log(f"[bench] {len(rows)} rows in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launches}, expected {want}")
+    for name, n in want.items():
+        if launches[name] != n:
+            fails.append(f"engine plane: {name} launched {launches[name]} "
+                         f"times, expected {n}")
+    if len(rows) != packed + 2 or not all(
+            len(r) == 3 and np.isfinite(float(r[1])) and float(r[1]) > 0
+            for r in rows):
+        fails.append(f"engine plane: {len(rows)} CSV rows, expected "
+                     f"{packed + 2} with positive times")
+    for name in ("dequant", "quire_dot"):
+        summary[name]["launches"] = launches[name]
+    summary["rmmec_matmul"]["launches_engine_plane"] = launches["rmmec_matmul"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -870,6 +1076,7 @@ def main() -> int:
     phase_rmmec(summary, fails)
     phase_flash(summary, fails)
     phase_paged(summary, fails)
+    phase_engine_kernels(summary, fails)
     log(f"[time] kernel checks {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_serve(summary, fails)
@@ -882,7 +1089,10 @@ def main() -> int:
     log(f"[time] full-width continuous serve {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_continuous_parity(fails)
-    log(f"[time] continuous parity {time.perf_counter() - t0:.1f} s; total "
+    log(f"[time] continuous parity {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_engine_plane(summary, fails)
+    log(f"[time] engine plane {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     if fails:
         for f in fails:
@@ -894,7 +1104,9 @@ def main() -> int:
             ("rmmec_matmul", RMMEC_SRC, RMMEC_TPU),
             ("flash_decode", FLASH_SRC, FLASH_TPU),
             ("paged_flash_decode", FLASH_SRC, PAGED_DECODE_TPU),
-            ("paged_flash_prefill", FLASH_SRC, PAGED_PREFILL_TPU)):
+            ("paged_flash_prefill", FLASH_SRC, PAGED_PREFILL_TPU),
+            ("dequant", DEQUANT_SRC, DEQUANT_TPU),
+            ("quire_dot", QUIRE_SRC, QUIRE_TPU)):
         s = summary[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu,

@@ -1,11 +1,21 @@
 """XR-NPE reproduction in PyTorch for NVIDIA Hopper.
 
 The counterpart of the JAX package ``repro``: the same number formats,
-packed-weight data plane, dense decoder and static serving engine, with
-the TPU's Pallas kernels rewritten as CUDA C++ kernels for ``sm_90a``
-(``csrc/``, built with ``nvcc`` at first use).  Every kernel wrapper
-launches its kernel on a CUDA tensor and runs its plain PyTorch version
-on a CPU tensor.
+packed-weight data plane, dense decoder, static and continuous serving
+engines, and the paper's SIMD-MAC engine plane (``core.npe``,
+``core.quire``, the Table II/III bench twins in ``benchmarks``), with
+the TPU's six Pallas kernels rewritten as CUDA C++ kernels for
+``sm_90a`` (``csrc/``, built with ``nvcc`` at first use):
+``rmmec_matmul``, ``flash_decode``, ``paged_flash_decode``,
+``paged_flash_prefill``, ``dequant`` and ``quire_dot``.  Every kernel
+wrapper launches its kernel on a CUDA tensor and runs its plain PyTorch
+version on a CPU tensor.
+
+On the CPU, ``python -m pytest tests/test_torch_*.py`` holds the port to
+the JAX package; on the card, ``python3 chip_smoke.py`` checks every
+kernel against its plain version and drives every path (phase 2c: the
+engine plane's kernels; phase 5: its bench twins), and
+``python -m repro_torch.benchmarks.run`` prints the bench twins' CSV.
 
 Entry points take ``device=None``, which means ``"cuda"``; they raise
 when no card is present unless the caller asks for ``device="cpu"``.

@@ -33,7 +33,7 @@ import torch
 __all__ = [
     "FormatSpec", "FORMATS", "FP4", "POSIT4", "POSIT8", "POSIT16",
     "FP8_E4M3", "FP8_E5M2", "FXP4", "FXP8", "BF16", "FP16", "FP32",
-    "format_by_name", "nar_code", "code_values", "torch_dtype",
+    "format_by_name", "simd_lanes", "nar_code", "code_values", "torch_dtype",
     "encode_table", "decode_table", "encode_bits", "decode_bits",
     "decode_posit_bits", "decode_minifloat_bits", "encode_posit_bits",
     "encode_minifloat_bits",
@@ -92,6 +92,11 @@ def format_by_name(name: str) -> FormatSpec:
 
 def torch_dtype(name: str) -> torch.dtype:
     return _TORCH_DTYPES[name]
+
+
+def simd_lanes(spec: FormatSpec) -> int:
+    """How many operands of this format fit one 16-bit XR-NPE SIMD lane."""
+    return max(1, 16 // spec.bits)
 
 
 def nar_code(spec: FormatSpec) -> int:

@@ -12,7 +12,10 @@ scales and a block mask, with the reference's fields and layout version:
 ``pack_tensor`` has the reference's two branches: a 2-D weight is padded
 to the kernel blocks of ``default_blocks`` with a per-block mask; a
 stacked (L, K, N) weight pads K to the group and N to the word, with one
-gate per slice.  ``packed_matmul`` runs the RMMEC kernel on either.
+gate per slice.  ``packed_matmul`` runs the RMMEC kernel on either, and
+``dequant`` the decode kernel on one 2-D slice.  ``quire_dot`` is the
+exact posit8 row dot of the SIMD-MAC engine plane, through the quire
+kernel and one final rounding (``quire_combine``).
 """
 
 from __future__ import annotations
@@ -26,9 +29,13 @@ from ..core import codec as codec_mod
 from ..core import quant
 from ..core.formats import FormatSpec
 from ..core.packing import lanes_per_word, pack, unpack
+from . import codec as dequant_kernel
+from . import quire_dot as quire_kernel
+from .quire_dot import QUIRE_FRAC_BITS
 from .rmmec_matmul import default_blocks, rmmec_matmul
 
-__all__ = ["PackedTensor", "pack_tensor", "to_dense", "packed_matmul",
+__all__ = ["PackedTensor", "pack_tensor", "unpack_tensor", "to_dense",
+           "packed_matmul", "quire_dot", "quire_combine", "dequant",
            "PACKED_TENSOR_VERSION"]
 
 PACKED_TENSOR_VERSION = 2
@@ -62,10 +69,14 @@ class PackedTensor:
 
 
 def pack_tensor(spec: FormatSpec, w: torch.Tensor,
-                group_size: Optional[int] = None) -> PackedTensor:
+                group_size: Optional[int] = None,
+                blocks: Optional[Tuple[int, int, int]] = None
+                ) -> PackedTensor:
     """Quantize + pack a weight whose trailing two dims are (K, N), with
     the format's default scale method and per-(K-group, channel) scales
-    (``group_size`` None: per channel)."""
+    (``group_size`` None: per channel).  A 2-D weight is padded to the
+    kernel blocks ``(bm, bk, bn)`` (default ``default_blocks(spec)``),
+    which also set the mask's granularity; a stacked one ignores them."""
     if w.dim() < 2:
         raise ValueError("pack_tensor needs a trailing (K, N) matrix")
     lead, (k, n) = tuple(w.shape[:-2]), tuple(w.shape[-2:])
@@ -74,7 +85,7 @@ def pack_tensor(spec: FormatSpec, w: torch.Tensor,
     if g is not None and g >= k:
         g = None                      # group=K: per-channel
     if w.dim() == 2:
-        _, bk, bn = default_blocks(spec)
+        _, bk, bn = blocks or default_blocks(spec)
         if g is not None and bk % g:
             raise ValueError(f"K block {bk} not a multiple of group {g}")
     else:
@@ -113,6 +124,12 @@ def to_dense(t: PackedTensor, dtype=torch.float32) -> torch.Tensor:
     return w[..., : t.shape[0], : t.shape[1]]
 
 
+def unpack_tensor(t: PackedTensor) -> torch.Tensor:
+    """2-D convenience alias of :func:`to_dense` (the reference keeps it
+    for callers that predate the rank-generic path)."""
+    return to_dense(t)
+
+
 def packed_matmul(x: torch.Tensor, t: PackedTensor) -> torch.Tensor:
     """x (..., K) @ W for one 2-D packed slice -> (..., N) float32.  Group
     scales apply inside the K accumulation, per-channel scales once at
@@ -127,3 +144,25 @@ def packed_matmul(x: torch.Tensor, t: PackedTensor) -> torch.Tensor:
         x2 = x2.float()
     out = rmmec_matmul(x2.contiguous(), t.words, t.scales, t.mask, t.spec, n)
     return out.reshape(*lead, n)
+
+
+def dequant(t: PackedTensor) -> torch.Tensor:
+    """Materialize one 2-D PackedTensor to dense (K, N) f32 through the
+    decode kernel (a stacked tensor is indexed by layer first)."""
+    if t.words.dim() != 2:
+        raise ValueError("dequant takes one 2-D slice; index a stacked "
+                         "PackedTensor by layer first")
+    return dequant_kernel.dequant(t.words, t.scales, t.spec, *t.shape)
+
+
+def quire_dot(a_codes: torch.Tensor, b_codes: torch.Tensor) -> torch.Tensor:
+    """Bit-exact Posit(8,0) row-wise dot: (B, K) codes x2 -> (B,) f32."""
+    hi, lo = quire_kernel.quire_dot(a_codes.to(torch.int32).contiguous(),
+                                    b_codes.to(torch.int32).contiguous())
+    return quire_combine(hi, lo)
+
+
+def quire_combine(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Fold the two int32 quire limbs (B, 1) into (B,) f32 (the single
+    final rounding)."""
+    return hi[:, 0].float() + lo[:, 0].float() * (2.0 ** -QUIRE_FRAC_BITS)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import contextlib
 import math
 
+import numpy as np
 import torch
 
 from ..core import codec as codec_mod
@@ -18,8 +19,8 @@ from ..core import quant
 from ..core.formats import FormatSpec
 from ..core.packing import unpack
 
-__all__ = ["no_tf32", "dequant_ref", "rmmec_matmul_ref", "scale_cols",
-           "dequant_kv_ref",
+__all__ = ["no_tf32", "dequant_ref", "rmmec_matmul_ref", "quire_dot_ref",
+           "scale_cols", "dequant_kv_ref",
            "flash_decode_ref", "paged_flash_decode_ref", "paged_prefill_ref"]
 
 
@@ -55,6 +56,19 @@ def rmmec_matmul_ref(x: torch.Tensor, w_words: torch.Tensor,
     w = dequant_ref(w_words, scales, spec, n)
     with no_tf32():
         return x.float() @ w[: x.shape[-1]]
+
+
+def quire_dot_ref(a_codes: torch.Tensor, b_codes: torch.Tensor) -> torch.Tensor:
+    """Row-wise posit8 dot in float64, NaR as 0: (B, K) codes x2 -> (B,).
+    float64 holds every posit8 product exactly and sums of < 2^40 of
+    them without rounding, so this matches the integer quire bit for bit
+    in that regime."""
+    vals = fmt.code_values(fmt.POSIT8).astype(np.float64)
+    table = torch.as_tensor(np.where(np.isnan(vals), 0.0, vals),
+                            device=a_codes.device)
+    a = table[a_codes.long() & 0xFF]
+    b = table[b_codes.long() & 0xFF]
+    return (a * b).sum(-1)
 
 
 def scale_cols(scale: torch.Tensor, dh: int) -> torch.Tensor:

@@ -22,7 +22,7 @@ from . import ref
 
 __all__ = ["rmmec_matmul", "rmmec_matmul_plain", "default_blocks"]
 
-_KIND = {"posit": 0, "minifloat": 1, "fixed": 2}
+KIND = {"posit": 0, "minifloat": 1, "fixed": 2}
 
 
 def default_blocks(spec: FormatSpec) -> Tuple[int, int, int]:
@@ -55,7 +55,7 @@ def _lib() -> ctypes.CDLL:
 
 def _check(x, words, scales, mask, spec: FormatSpec, n: int):
     """Validate shapes/dtypes of one 2-D slice; returns (kp, np_, group)."""
-    if spec.kind not in _KIND:
+    if spec.kind not in KIND:
         raise ValueError(f"rmmec_matmul has no decoder for {spec.name}")
     if x.dim() != 2 or words.dim() != 2 or scales.dim() != 2 \
             or mask.dim() != 2:
@@ -102,7 +102,7 @@ def rmmec_matmul(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor,
         x.data_ptr(), int(x.dtype == torch.bfloat16), words.data_ptr(),
         scales.data_ptr(), mask.data_ptr(), out.data_ptr(), m, k, n, np_,
         group, kp // mask.shape[0], np_ // mask.shape[1], mask.shape[1],
-        _KIND[spec.kind], spec.bits, spec.es, spec.ebits, spec.mbits,
+        KIND[spec.kind], spec.bits, spec.es, spec.ebits, spec.mbits,
         int(spec.has_nan), spec.frac_bits,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

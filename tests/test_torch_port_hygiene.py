@@ -44,7 +44,10 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_and_reference_unloaded():
     code = ("import sys, repro_torch.serve.engine, repro_torch.launch.serve, "
             "repro_torch.bridge, repro_torch.serve.scheduler, "
-            "repro_torch.serve.paged_kv, repro_torch.obs\n"
+            "repro_torch.serve.paged_kv, repro_torch.obs, "
+            "repro_torch.core.npe, repro_torch.core.quire, "
+            "repro_torch.kernels.codec, repro_torch.kernels.quire_dot, "
+            "repro_torch.benchmarks.run\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))")
