@@ -24,10 +24,14 @@ and, for continuous batching over the paged posit8 KV pool:
 
   2b. ``paged_flash_decode`` and ``paged_flash_prefill`` vs their plain
       versions and the naive oracles at qwen2-0.5b's shapes (page 128,
-      8 pages per request; positions 0, 127, 128, 1023 and a parked row;
-      chunks of 128 and 256), bitwise against ``flash_decode`` over a
-      shuffled scatter of a contiguous cache, and C=1 prefill bitwise
-      against paged decode;
+      8 pages per request; positions 0, 127, 128, 1023, the first slots
+      of pages and a parked row; chunks of 128 and 256, one at a start
+      that is not page-aligned, one padded past the table's last
+      column), bitwise against ``flash_decode`` over a shuffled scatter
+      of a contiguous cache, ``flash_decode`` with a left pad bitwise
+      against the decode entry point over the same cache as pages, and
+      C=1 prefill bitwise against paged decode; pages of 24 and 16 slots
+      (the kernels' generic-width path) against the plain versions too;
   3b. ``ContinuousEngine`` serving full-width qwen2-0.5b (paper_mixed
       weights, 20 pages of 128 slots, prefix cache, 256-token chunks) a
       16-request mix with a shared preamble and staggered arrivals, at
@@ -99,10 +103,12 @@ SPIN_CYCLES = 400_000  # ~0.2 ms of device time at the H100's clocks
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms with a cold L2 before each call
+    """Median device time of ``fn`` in ms with a cold L2 before each call
     (CUDA events around each call).  A spin kernel after the flush keeps
     the stream busy while the host issues ``fn``'s launches, so the
-    interval holds device work only, not the host's launch overhead."""
+    interval holds device work only, not the host's launch overhead; the
+    median keeps one interval the host stalled past the spin from moving
+    a 0.01 ms kernel's time."""
     buf = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
@@ -115,7 +121,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
         ends[i].record()
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+    return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
 def card() -> str:
@@ -410,6 +416,18 @@ def _profile(fn):
     return wall, dev, host
 
 
+ATTENTION_KERNELS = ("decode_page_kernel", "decode_fold_kernel",
+                     "prefill_kernel")
+
+
+def _top_and_attention(dev, n: int = 8):
+    """The ``n`` kernels with the most device time, then any attention
+    kernel of ``csrc/flash_decode.cu`` not among them."""
+    ranked = sorted(dev.items(), key=lambda kv: -kv[1][0])
+    return ranked[:n] + [kv for kv in ranked[n:]
+                         if any(a in kv[0] for a in ATTENTION_KERNELS)]
+
+
 def profile_decode(eng, toks, step_ms: float, steps: int = 8) -> None:
     """Where a decode step's time goes: profile prefill alone and prefill
     plus ``steps`` decode steps, and print the difference per step --
@@ -430,7 +448,7 @@ def profile_decode(eng, toks, step_ms: float, steps: int = 8) -> None:
         f"profiled / {step_ms:.2f} ms unprofiled, device busy {busy:.2f} ms, "
         f"busy share {busy / wall:.3f} profiled / {busy / step_ms:.3f} "
         f"unprofiled, kernel launches {sum(v[1] for v in dev.values()):.0f}")
-    for k, (ms, n) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]:
+    for k, (ms, n) in _top_and_attention(dev):
         log(f"[profile]   device {ms:8.3f} ms  {n:6.1f} calls  {k[:90]}")
     host = {k: (v - h0.get(k, 0.0)) / steps for k, v in h1.items()}
     for k, ms in sorted(host.items(), key=lambda kv: -kv[1])[:8]:
@@ -508,8 +526,9 @@ def _bitwise(tag, got, want, fails) -> None:
 def phase_paged(summary, fails) -> None:
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_decode import (
-        flash_decode, paged_flash_decode, paged_flash_decode_plain,
-        paged_flash_prefill, paged_flash_prefill_plain)
+        _decode_cuda, flash_decode, paged_flash_decode,
+        paged_flash_decode_plain, paged_flash_prefill,
+        paged_flash_prefill_plain)
     from repro_torch.models.attention import quantize_kv
     gen = torch.Generator("cuda").manual_seed(4)
     b, kh, g, dh, page, npp = 8, 2, 7, 64, 128, 8
@@ -524,7 +543,8 @@ def phase_paged(summary, fails) -> None:
         pt = torch.tensor(pt_np, dtype=torch.int32, device="cuda")
         q = torch.randn((b, kh, g, dh), generator=gen, device="cuda")
         for positions in ([0, 127, 128, 1023, 5, 300, 777, 0],
-                          [1023, 640, 255, 129, 1, 900, 512, 0]):
+                          [1023, 640, 255, 129, 1, 900, 512, 0],
+                          [128, 256, 384, 512, 640, 768, 896, 0]):
             pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
             for softcap in (0.0, 20.0):
                 got = paged_flash_decode(q, *pool, pt, pos, softcap)
@@ -539,17 +559,24 @@ def phase_paged(summary, fails) -> None:
                 _bitwise(f"C=1 prefill == decode group={group} "
                          f"pos={positions} softcap={softcap}", one[:, 0], got,
                          fails)
+        # (B, C, starts): page-aligned chunks, one after a prefix hit (start
+        # 200), and a padded final chunk whose rows from 1024 on lie past
+        # the table's last column (compared on the rows inside it)
         for bb, c, starts in ((1, 128, [0]), (1, 256, [768]), (1, 256, [256]),
-                              (3, 128, [0, 512, 896]), (3, 256, [0, 256, 768])):
+                              (3, 128, [0, 512, 896]), (3, 256, [0, 256, 768]),
+                              (1, 128, [200]), (1, 256, [896])):
             q5 = torch.randn((bb, c, kh, g, dh), generator=gen, device="cuda")
             st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+            rows = min(c, t - max(starts))
             for softcap in (0.0, 20.0):
                 got = paged_flash_prefill(q5, *pool, pt[:bb], st, softcap)
                 err_p = max(err_p, _check(
                     f"prefill group={group} B={bb} C={c} start={starts} "
-                    f"softcap={softcap}", got,
-                    paged_flash_prefill_plain(q5, *pool, pt[:bb], st, softcap),
-                    ref.paged_prefill_ref(q5, *pool, pt[:bb], st, softcap),
+                    f"softcap={softcap} rows<{rows}", got[:, :rows],
+                    paged_flash_prefill_plain(q5, *pool, pt[:bb], st,
+                                              softcap)[:, :rows],
+                    ref.paged_prefill_ref(q5, *pool, pt[:bb], st,
+                                          softcap)[:, :rows],
                     fails))
         # a contiguous cache scattered over shuffled pages: paged decode ==
         # flash_decode with blk == page, bitwise
@@ -570,6 +597,47 @@ def phase_paged(summary, fails) -> None:
                      paged_flash_decode(q, *scattered, perm, pos, 20.0),
                      flash_decode(q, *contig, p_, softcap=20.0, blk=page),
                      fails)
+        # flash_decode with a left pad (130 skips page 0) == the decode
+        # entry point over the same cache as shuffled pages with that pad
+        pad = torch.tensor([0, 3, 17, 64, 0, 1, 130, 5], dtype=torch.int32,
+                           device="cuda")
+        for p_ in (127, 128, 700, 1023):
+            pos = torch.full((b,), p_, dtype=torch.int32, device="cuda")
+            pd = pad.clamp(max=p_)
+            _bitwise(f"flash_decode pad == decode entry over pages "
+                     f"group={group} pos={p_}",
+                     flash_decode(q, *contig, p_, pad=pd, softcap=20.0,
+                                  blk=page),
+                     _decode_cuda(q, *scattered, page, npp, perm, pos, pd, 0,
+                                  20.0), fails)
+
+    # pages other than 128 slots take the kernels' generic-width path: an
+    # odd count of 8-slot tiles (24) and a short page (16) with group 8
+    for gpage, group in ((24, None), (16, 8)):
+        gnp = 6
+        gpool = _paged_pool(gen, 3 * gnp + 1, gpage, kh, dh, group)
+        gpt = torch.tensor(rng.permutation(np.arange(1, 3 * gnp + 1))
+                           .reshape(3, gnp), dtype=torch.int32, device="cuda")
+        gpos = torch.tensor([0, 2 * gpage + 5, gnp * gpage - 1],
+                            dtype=torch.int32, device="cuda")
+        q3 = q[:3].contiguous()
+        got = paged_flash_decode(q3, *gpool, gpt, gpos, 20.0)
+        err_d = max(err_d, _check(
+            f"decode page={gpage} group={group} pos={gpos.tolist()}", got,
+            paged_flash_decode_plain(q3, *gpool, gpt, gpos, 20.0),
+            ref.paged_flash_decode_ref(q3, *gpool, gpt, gpos, 20.0), fails))
+        _bitwise(f"C=1 prefill == decode page={gpage} group={group}",
+                 paged_flash_prefill(q3[:, None], *gpool, gpt, gpos, 20.0)[:, 0],
+                 got, fails)
+        q5 = torch.randn((3, 2 * gpage, kh, g, dh), generator=gen,
+                         device="cuda")
+        gst = torch.tensor([0, gpage, 3 * gpage], dtype=torch.int32,
+                           device="cuda")
+        err_p = max(err_p, _check(
+            f"prefill page={gpage} group={group} C={2 * gpage} "
+            f"start={gst.tolist()}", paged_flash_prefill(q5, *gpool, gpt, gst),
+            paged_flash_prefill_plain(q5, *gpool, gpt, gst),
+            ref.paged_prefill_ref(q5, *gpool, gpt, gst), fails))
 
     # times at the continuous path's shapes: a decode dispatch row set of
     # eight requests mid-generation, and one 256-token chunk late in a
@@ -611,10 +679,18 @@ def phase_paged(summary, fails) -> None:
         qd, kd, vd, attn_mask=mask, enable_gqa=True))
     pairs = sum(start + i + 1 for i in range(c))
     nbytes = (start + c) * slot_bytes + 2 * q5.numel() * 4 + npp * 4 + 4
-    b_ms, b_by = bound_ms(nbytes, 4.0 * pairs * kh * g * dh, PEAK_FLOPS["f32"])
-    log(f"[paged] time prefill B=1 C={c} start={start}: kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, library (SDPA, bf16, causal mask) {lib:.4f} "
-        f"ms, bound {b_ms:.5f} ms ({b_by})")
+    flops = 4.0 * pairs * kh * g * dh
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_FLOPS["f32"])
+    # this design's own: three bf16 MMA terms per f32 product
+    tc_ms, tc_by = bound_ms(nbytes, 3 * flops, PEAK_FLOPS["bf16"])
+    # the main path hands the kernel bf16 activations: one nonzero q term
+    q5b = q5.to(torch.bfloat16).float()
+    ms_b = time_ms(lambda: paged_flash_prefill(q5b, *pool, pt[:1], st))
+    log(f"[paged] time prefill B=1 C={c} start={start}: kernel {ms:.4f} ms "
+        f"(bf16-valued q, the main path's: {ms_b:.4f} ms), plain {plain:.4f} "
+        f"ms, library (SDPA, bf16, causal mask) {lib:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}, f32), tensor-core bound {tc_ms:.5f} ms "
+        f"({tc_by}, 3 bf16 terms)")
     summary["paged_flash_prefill"] = dict(
         max_abs_err=err_p, ms=ms, plain_ms=plain, library_ms=lib,
         bound_ms=b_ms, bound_by=b_by)
@@ -816,7 +892,7 @@ def profile_continuous(cfg, params, kw, reqs, warm_steps: int = 4,
     log(f"[cprofile] {steps} steps of K=4 (profiled): wall {wall / steps:.2f} "
         f"ms/step, device busy {busy / steps:.2f} ms/step, busy share "
         f"{busy / wall:.3f}, kernel launches {n / steps:.0f}/step")
-    for k, (ms, cnt) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]:
+    for k, (ms, cnt) in _top_and_attention(dev):
         log(f"[cprofile]   device {ms / steps:8.3f} ms/step {cnt / steps:7.1f} "
             f"calls  {k[:90]}")
     for k, ms in sorted(host.items(), key=lambda kv: -kv[1])[:6]:

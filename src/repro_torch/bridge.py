@@ -13,15 +13,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import resolve_device
 from .core.formats import format_by_name
 from .kernels.ops import PackedTensor
 
 __all__ = ["params_from_numpy", "tensor_from_numpy"]
 
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(a, device=None) -> torch.Tensor:
     """One array -> tensor with the same bits (uint32 -> int32 view,
-    bfloat16 -> torch.bfloat16)."""
+    bfloat16 -> torch.bfloat16) on ``device`` (None: the card)."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.array(a).view(np.int16)) \
@@ -31,9 +33,10 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device=None):
     """Nested dicts of numpy arrays (packed tensors as dicts with a
-    ``spec`` key) -> the port's tree on ``device``."""
+    ``spec`` key) -> the port's tree on ``device`` (None: the card)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         if "spec" in tree and "words" in tree:
             return PackedTensor(

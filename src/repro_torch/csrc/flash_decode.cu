@@ -1,54 +1,81 @@
 // GQA attention straight from a posit8 KV cache, for Hopper (sm_90a):
-// one-token decode over a contiguous cache, one-token decode over a
-// paged pool, and chunk prefill over a paged pool.
+// one-token decode over a paged pool or a contiguous cache, and chunk
+// prefill over a paged pool.
 //
 // Replaces, in src/repro/kernels/flash_decode.py:
-//   flash_decode_kernel        <- flash_decode_pallas (static decode),
-//   paged_flash_decode_kernel  <- paged_flash_decode_pallas (the
-//                                 continuous engine's decode),
-//   paged_flash_prefill_kernel <- paged_flash_prefill_pallas (its
-//                                 pages-context chunk prefill).
+//   decode_page_kernel + decode_fold_kernel (entry paged_flash_decode)
+//       <- paged_flash_decode_pallas (the continuous engine's decode) and,
+//          with contiguous addressing, flash_decode_pallas (static decode);
+//   prefill_kernel (entry paged_flash_prefill)
+//       <- paged_flash_prefill_pallas (its pages-context chunk prefill).
 //
-// The math is the TPU kernels', step for step, and lives in ONE device
-// function, online_softmax_step, the CUDA form of the reference's single
-// _online_softmax_step: the three kernels differ only in where a KV block
-// lies in memory and which query rows a block holds.  A KV block of `blk`
-// slots is dequantized in shared memory (posit8 decode times the bf16
-// scale; Gs = Dh / group scale columns, Gs == 1 one per token and head),
-// scored against R query rows (dot, times 1/sqrt(Dh), optional tanh
-// softcap), masked with the -1e30 sentinel and folded into an online
-// softmax (m, l, acc in f32).  Row r sees the slots
-// pad_lo <= kpos <= hz[r], its horizon hz[r] = start + (row0 + r) / G:
-//   - decode: R = G rows of one (b, kv-head), start = the position, row0 0;
-//   - prefill: rows r = qi*G + gi of a chunk at start .. start+C-1, so a
-//     row's horizon is start + qi.
-// Because every row's arithmetic is the same whatever R, row0 and the
-// block's address, paged decode equals contiguous decode bitwise when
-// page == blk, and a C = 1 prefill chunk equals paged decode bitwise.
+// Addressing.  A pool is codes (P, page, Kh, Dh) uint8 and scales
+// (P, page, Kh, Gs) bf16 with a page table (B, NP) int32 mapping request
+// b's logical page t to a pool page.  A contiguous cache (B, T, Kh, Dh)
+// with blk | T *is* such a pool of B*T/blk pages of blk slots: logical page
+// t of row b is page b*(T/blk) + t, so the decode entry takes a null page
+// table to mean that.  Row r of a (b, kv-head) has the horizon
+// hz = start + r / G (decode: start = the position, r < G; prefill: rows
+// r = qi*G + gi of a chunk at start .. start+C-1) and sees the slots
+// pad_lo <= kpos <= hz.  A walk visits the live pages t <= hz / page only,
+// from pad_lo / page on, and stops at the table's last column.
 //
-// Memory layouts: contiguous codes (B, T, Kh, Dh) uint8 and scales
-// (B, T, Kh, Gs) bf16; a pool (P, page, Kh, Dh) / (P, page, Kh, Gs) with a
-// page table (B, NP) int32 mapping a request's logical block t to its
-// page.  Each block reads its own positions / start and page ids (what
-// the TPU prefetched as scalars) and walks only its live blocks
-// (t <= horizon / blk): no page past the live prefix is ever read.  Like
-// the TPU grid, the walk stops at the table's last column: rows of a
-// padded final chunk whose horizon lies past it are never read back.
+// What bounds them on this card.  Decode: bytes -- one byte per cached
+// element and its share of a scale, read once, a few flops a byte; at B=8
+// the whole live prefix is ~0.3 MB, so what is left is latency: one wave
+// of blocks, each a chain of dependent loads and MMAs.  Prefill:
+// operations -- a 256-token chunk with G = 7 is 1792 query rows per kv
+// head against the live prefix; in f32 outside the tensor cores that is
+// ~9 us of the card, on the bf16 tensor cores with the three-term split
+// below ~2 us, against ~0.2 MB of codes.  A lone warp per SM sub-partition
+// walking its pages in series is the latency to beat in both.
 //
-// What bounds them on this card.  Decode: bytes (one byte per cached
-// element plus its share of a scale, read once; a few flops per byte).
-// Prefill: operations -- a 256-token chunk with G = 7 is 1792 query rows
-// per kv head over the whole live prefix, ~0.7 GFLOP in f32 against
-// ~0.2 MB of codes.  Design: 128 threads per block; decode one block per
-// (b, kv-head), prefill one block per (b, kv-head, tile of 32 query rows)
-// (the TPU held all C*G rows' accumulators in VMEM, 448 KB at C = 256,
-// twice a block's shared memory); a loop over the live KV blocks inside
-// the block (the TPU's sequential grid axis); the dequantized K and V
-// block in shared memory (K rows padded by one float against bank
-// conflicts); one warp per query row for the softmax statistics.  Each
-// prefill row tile dequantizes the pages again; splitting KV across
-// blocks, tensor cores and keeping dequantized pages resident are later
-// work.
+// The design both kernels share: one page partial, one fold.
+//   - Page partial (page_partial): a team of four warps, 16 query rows,
+//     one KV page dequantized in shared memory: s = (q.k)*scale, the
+//     optional tanh softcap, the mask kpos > hz || kpos < pad_lo -> -1e30;
+//     m_p = max s, p = exp(s - m_p), l_p = sum p, acc_p = p.V.  Warp w
+//     computes the scores of the page's slots 32w .. 32w+31 and, after the
+//     team has shared p through shared memory, acc_p for its quarter of
+//     the Dh columns over the whole page; the row max and the row sum
+//     combine across the team in warp order.  Each element of S and acc_p
+//     is the same MMA chain whichever warp holds it.
+//   - Fold (fold_stats + fold_value): the partials of a row's pages merge
+//     in page order into (M, L, ACC), from (-1e30, 0, 0):
+//     M' = max(M, m_p), ACC = ACC*exp(M - M') + acc_p*exp(m_p - M'), L
+//     the same, with explicit fma/mul intrinsics so no contraction differs.
+//   - A page wholly past a row's horizon has m_p = -1e30 and weight
+//     exp(-1e30 - M) = 0, while M, L, ACC pass through times exp(0) = 1:
+//     folding it changes no bit.  So a prefill row that walks its tile's
+//     extra masked pages (or skips them) equals, bit for bit, a decode row
+//     that stops at its own last page.  And partials written to device
+//     memory by other blocks and folded in page order give the same bits as
+//     partials folded in registers.  No row's arithmetic depends on the
+//     block, team or tile that holds it: a row keeps its place in its
+//     16-row group (row r at group row r % 16).  Hence, bitwise: paged
+//     decode == contiguous decode when page == blk (one kernel), and a
+//     C = 1 prefill chunk == paged decode.
+//   - Decode is split-KV: one block (one team) per (b, kv-head, page)
+//     writes the page partial of the G rows to scratch; a second kernel in
+//     the same entry folds each (b, kv-head)'s partials in page order and
+//     divides.  Prefill keeps the page: one block per (b, kv-head, tile of
+//     32 rows, two teams; 16 rows for Dh = 128), heaviest tile first; the
+//     block dequantizes each live page once into shared memory, every team
+//     takes its partials from that copy and folds them in registers, and
+//     the next page's codes arrive by cp.async (16 bytes a thread) while
+//     the current page computes.
+//
+// f32-faithful on bf16 tensor cores (mma.sync m16n8k16, f32 accumulate).
+// K and V dequantize exactly into bf16: a posit(8,0) value has at most 6
+// significant bits (a 256-entry bf16 table built per block from
+// Posit<8,0>::decode) and the scales are powers of two.  q (f32) splits
+// into hi + mid + lo, three bf16 terms whose sum is q exactly (for normal
+// f32), and p the same; every bf16 x bf16 product is exact in f32, and the
+// three MMAs accumulate in a fixed order (hi, mid, lo).  A team skips a q
+// term that is zero in all its rows (q from bf16 activations: mid = lo =
+// 0), which changes no bit.  No TF32, no bf16 rounding of q or p.
+//
+// Limits: Dh in {32, 64, 128}; page (blk) a multiple of 8, at most 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,212 +87,642 @@
 namespace {
 
 using xrnpe::Posit;
+using bf16 = __nv_bfloat16;
 
-constexpr int NT = 128;
+constexpr int TEAM = 128;              // threads of a team: 4 warps, 16 rows
+constexpr int TEAM_WARPS = TEAM / 32;
+constexpr int ROWS = 16;               // query rows of a team (the MMA's M)
+constexpr int MAXP = 128;              // most slots of a page
+constexpr int LDP = MAXP + 8;          // row stride of the shared p terms
+constexpr int LUT_BYTES = 512;         // the posit table: 256 bf16
 constexpr float NEG = -1e30f;
-constexpr int PREFILL_ROWS = 32;  // query rows per paged-prefill block
 
-// Shared memory of one block: R query rows against one KV block of blk slots.
-struct Smem {
-  float* qs;    // (R, Dh) queries
-  float* acc;   // (R, Dh)
-  float* kb;    // (blk, Dh + 1) dequantized K
-  float* vb;    // (blk, Dh) dequantized V
-  float* sb;    // (R, blk) scores, then p
-  float* mrow;  // (R,) running max
-  float* lrow;  // (R,) normalizer
-  float* arow;  // (R,) alpha of the current block
-  int* hz;      // (R,) last visible slot of each row
+// Teams of a prefill block: two (32-row tiles), one at Dh = 128.  Two
+// measured faster than four and than one at qwen2-0.5b's shapes (more
+// blocks on the card against fewer dequantized copies of each page).
+template <int DH>
+struct Prefill {
+  static constexpr int TEAMS = DH == 128 ? 1 : 2;
+  static constexpr int THREADS = TEAMS * TEAM;
+  static constexpr int TILE = TEAMS * ROWS;
 };
 
-__device__ __forceinline__ Smem carve(float* sm, int R, int Dh, int blk) {
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+
+// ---------------------------------------------------------------------------
+// shared memory of one block
+// ---------------------------------------------------------------------------
+
+// A page's staged codes and scales: K codes (page, Dh), V codes, then the
+// page's K and V scale blocks for ALL kv heads (page*Kh*Gs bf16 each, one
+// contiguous run in the pool, so whole 16-byte copies).
+__host__ __device__ inline int scale_block_bytes(int page, int Kh, int Gs) {
+  return page * Kh * Gs * 2;
+}
+__host__ __device__ inline int stage_bytes(int page, int Kh, int Gs, int Dh) {
+  return 2 * page * Dh + 2 * align16(scale_block_bytes(page, Kh, Gs));
+}
+
+// A team's own: the q terms (3, 16, Dh + 8) bf16, the p terms (3, 16, LDP)
+// bf16, and floats for the per-warp row maxima (4, 16), row sums (4, 16)
+// and the warps' nonzero-term flags.
+struct Team {
+  bf16* qs;
+  bf16* ps;
+  float* red;
+};
+__host__ __device__ inline int team_bytes(int Dh) {
+  return 3 * ROWS * (Dh + 8) * 2 + 3 * ROWS * LDP * 2 + (2 * TEAM_WARPS * ROWS + 16) * 4;
+}
+
+struct Smem {
+  bf16* lut;        // 256 posit(8,0) values
+  uint8_t* stage;   // nbuf staging buffers
+  bf16* kp;         // (align16(page), Dh + 8) dequantized K
+  bf16* vp;         // (align16(page), Dh + 8) dequantized V
+  uint8_t* teams;   // the teams' own parts
+};
+
+__host__ __device__ inline int smem_bytes(int page, int Kh, int Gs, int Dh, int nbuf,
+                                          int teams) {
+  return LUT_BYTES + nbuf * stage_bytes(page, Kh, Gs, Dh) +
+         2 * align16(page) * (Dh + 8) * 2 + teams * team_bytes(Dh);
+}
+
+__device__ __forceinline__ Smem carve(uint8_t* sm, int page, int Kh, int Gs, int Dh,
+                                      int nbuf) {
+  const int ld = Dh + 8;
   Smem s;
-  s.qs = sm;
-  s.acc = s.qs + R * Dh;
-  s.kb = s.acc + R * Dh;
-  s.vb = s.kb + blk * (Dh + 1);
-  s.sb = s.vb + blk * Dh;
-  s.mrow = s.sb + R * blk;
-  s.lrow = s.mrow + R;
-  s.arow = s.lrow + R;
-  s.hz = reinterpret_cast<int*>(s.arow + R);
+  s.lut = reinterpret_cast<bf16*>(sm);
+  s.stage = sm + LUT_BYTES;
+  s.kp = reinterpret_cast<bf16*>(s.stage + nbuf * stage_bytes(page, Kh, Gs, Dh));
+  s.vp = s.kp + align16(page) * ld;
+  s.teams = reinterpret_cast<uint8_t*>(s.vp + align16(page) * ld);
   return s;
 }
 
-// Bytes of dynamic shared memory for R rows.
-int smem_bytes(int R, int Dh, int blk) {
-  return static_cast<int>(sizeof(float)) *
-         (2 * R * Dh + blk * (Dh + 1) + blk * Dh + R * blk + 4 * R);
+__device__ __forceinline__ Team team_of(const Smem& s, int team, int Dh) {
+  uint8_t* base = s.teams + team * team_bytes(Dh);
+  Team tm;
+  tm.qs = reinterpret_cast<bf16*>(base);
+  tm.ps = tm.qs + 3 * ROWS * (Dh + 8);
+  tm.red = reinterpret_cast<float*>(tm.ps + 3 * ROWS * LDP);
+  return tm;
 }
 
-// acc = 0, m = -1e30, l = 0 and the horizon start + (row0 + r) / G of R
-// rows (the queries are loaded by the caller).
-__device__ __forceinline__ void init_rows(float* sm, int R, int Dh, int blk,
-                                          int start, int row0, int G) {
-  const Smem s = carve(sm, R, Dh, blk);
-  for (int i = threadIdx.x; i < R * Dh; i += NT) s.acc[i] = 0.0f;
-  for (int r = threadIdx.x; r < R; r += NT) {
-    s.mrow[r] = NEG;
-    s.lrow[r] = 0.0f;
-    s.hz[r] = start + (row0 + r) / G;
+// The posit table, and zeros in the K/V rows past the page up to a
+// multiple of 16 (read by the MMAs' last k-step, never written after).
+__device__ __forceinline__ void init_block(const Smem& s, int page, int Dh) {
+  for (int i = threadIdx.x; i < 256; i += blockDim.x)
+    s.lut[i] = __float2bfloat16_rn(Posit<8, 0>::decode(i));
+  const int ld = Dh + 8;
+  const int n = (align16(page) - page) * ld;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    s.kp[page * ld + i] = __float2bfloat16_rn(0.0f);
+    s.vp[page * ld + i] = __float2bfloat16_rn(0.0f);
   }
 }
 
-// One online-softmax step of R query rows over one KV block: the single
-// copy of the math.  kc/ks/vc/vs point at slot 0 of the block for this
-// block's KV head; slot j's codes are at kc + j*ld_code and its scales at
-// ks + j*ld_scale.  The block holds logical slots kpos0 .. kpos0+blk-1.
-// `sm` is the block's shared memory (see carve).  Starts and ends with
-// all threads past a barrier.
-__device__ __forceinline__ void online_softmax_step(
-    float* sm, int R, int Dh, int Gs, int blk,
-    const uint8_t* __restrict__ kc, const __nv_bfloat16* __restrict__ ks,
-    const uint8_t* __restrict__ vc, const __nv_bfloat16* __restrict__ vs,
-    size_t ld_code, size_t ld_scale, int kpos0, int pad_lo, float softcap,
-    float scale) {
-  const Smem s = carve(sm, R, Dh, blk);
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int ldk = Dh + 1;
-  const int dg = Dh / Gs;
-  for (int i = tid; i < blk * Dh; i += NT) {
-    const int j = i / Dh, d = i % Dh;
-    s.kb[j * ldk + d] = Posit<8, 0>::decode(__ldg(kc + j * ld_code + d)) *
-                        __bfloat162float(__ldg(ks + j * ld_scale + d / dg));
-    s.vb[j * Dh + d] = Posit<8, 0>::decode(__ldg(vc + j * ld_code + d)) *
-                       __bfloat162float(__ldg(vs + j * ld_scale + d / dg));
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The four warps of a team meet (named barrier `bar`, 1 + the team).
+__device__ __forceinline__ void team_sync(int bar) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "n"(TEAM) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// c += a (16x16 bf16, row) . b (16x8 bf16, col), f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x == hi + mid + lo exactly, each a bf16 (x a normal f32).
+__device__ __forceinline__ void split3(float x, bf16& hi, bf16& mid, bf16& lo) {
+  hi = __float2bfloat16_rn(x);
+  const float r = x - __bfloat162float(hi);
+  mid = __float2bfloat16_rn(r);
+  lo = __float2bfloat16_rn(r - __bfloat162float(mid));
+}
+
+__device__ __forceinline__ uint32_t pack2(bf16 lo_half, bf16 hi_half) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo_half)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi_half)) << 16);
+}
+
+// Stores the three bf16 terms of (x, y) at `dst` in each of the three
+// planes `plane` elements apart; notes whether a mid / lo term is nonzero.
+__device__ __forceinline__ void store_terms(bf16* dst, int plane, float x, float y,
+                                            bool& any_mid, bool& any_lo) {
+  bf16 h0, m0, l0, h1, m1, l1;
+  split3(x, h0, m0, l0);
+  split3(y, h1, m1, l1);
+  *reinterpret_cast<uint32_t*>(dst) = pack2(h0, h1);
+  *reinterpret_cast<uint32_t*>(dst + plane) = pack2(m0, m1);
+  *reinterpret_cast<uint32_t*>(dst + 2 * plane) = pack2(l0, l1);
+  any_mid |= __bfloat162float(m0) != 0.0f || __bfloat162float(m1) != 0.0f;
+  any_lo |= __bfloat162float(l0) != 0.0f || __bfloat162float(l1) != 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// one page: stage, dequantize (every thread of the block)
+// ---------------------------------------------------------------------------
+
+// Starts the copy of pool page `pid`'s codes for kv head h and its scale
+// blocks into `st` (cp.async, 16 bytes a thread per step) and commits it.
+template <int Dh, int NT>
+__device__ __forceinline__ void stage_page(uint8_t* st, const uint8_t* __restrict__ kc,
+                                           const bf16* __restrict__ ks,
+                                           const uint8_t* __restrict__ vc,
+                                           const bf16* __restrict__ vs, size_t pid,
+                                           int page, int Kh, int h, int Gs) {
+  constexpr int cps = Dh / 16;
+  const int nc = page * cps;
+  for (int i = threadIdx.x; i < 2 * nc; i += NT) {
+    const int which = i >= nc, c = i - which * nc, j = c / cps, part = c % cps;
+    const uint8_t* src = (which ? vc : kc) + ((pid * page + j) * Kh + h) * Dh + part * 16;
+    cp_async16(st + which * page * Dh + c * 16, src);
   }
-  __syncthreads();
-  for (int i = tid; i < R * blk; i += NT) {
-    const int r = i / blk, j = i % blk;
-    float sc = 0.0f;
-    for (int d = 0; d < Dh; ++d) sc = fmaf(s.qs[r * Dh + d], s.kb[j * ldk + d], sc);
-    sc *= scale;
-    if (softcap > 0.0f) sc = tanhf(sc / softcap) * softcap;
-    const int kpos = kpos0 + j;
-    if (kpos > s.hz[r] || kpos < pad_lo) sc = NEG;
-    s.sb[i] = sc;
+  const int sb = scale_block_bytes(page, Kh, Gs), ns = sb / 16;
+  uint8_t* sdst = st + 2 * page * Dh;
+  for (int i = threadIdx.x; i < 2 * ns; i += NT) {
+    const int which = i >= ns, c = i - which * ns;
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(which ? vs : ks) + pid * sb + c * 16;
+    cp_async16(sdst + which * align16(sb) + c * 16, src);
   }
-  __syncthreads();
-  for (int r = warp; r < R; r += NT / 32) {
-    float mx = s.mrow[r];
-    for (int j = lane; j < blk; j += 32) mx = fmaxf(mx, s.sb[r * blk + j]);
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.0f;
-    for (int j = lane; j < blk; j += 32) {
-      const float p = expf(s.sb[r * blk + j] - mx);
-      s.sb[r * blk + j] = p;
-      sum += p;
+  cp_async_commit();
+}
+
+// Staged codes -> exact bf16 K and V rows (the table value times the
+// scale; exact for power-of-two scales).
+template <int Dh, int NT>
+__device__ __forceinline__ void dequant_page(const Smem& s, const uint8_t* st, int page,
+                                             int Kh, int h, int Gs) {
+  constexpr int cps = Dh / 16, ld = Dh + 8;
+  const int nc = page * cps;
+  const int gshift = __ffs(Dh / Gs) - 1;  // a scale group is 2^gshift columns
+  const int sb = align16(scale_block_bytes(page, Kh, Gs));
+  const bf16* ksc = reinterpret_cast<const bf16*>(st + 2 * page * Dh);
+  const bf16* vsc = reinterpret_cast<const bf16*>(st + 2 * page * Dh + sb);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < 2 * nc; i += NT) {
+    const int which = i >= nc, c = i - which * nc, j = c / cps, part = c % cps;
+    const uint4 raw = *reinterpret_cast<const uint4*>(st + which * page * Dh + c * 16);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    const bf16* sc = (which ? vsc : ksc) + (j * Kh + h) * Gs;
+    const bool one = gshift >= 4;  // one scale for the 16 codes
+    const float sv = __bfloat162float(sc[(part * 16) >> gshift]);
+    uint32_t out[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t word = w[e / 2] >> (16 * (e % 2));
+      const int d = part * 16 + 2 * e;
+      const float s0 = one ? sv : __bfloat162float(sc[d >> gshift]);
+      const float s1 = one ? sv : __bfloat162float(sc[(d + 1) >> gshift]);
+      out[e] = pack2(__float2bfloat16_rn(__bfloat162float(s.lut[word & 0xffu]) * s0),
+                     __float2bfloat16_rn(__bfloat162float(s.lut[(word >> 8) & 0xffu]) * s1));
     }
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane == 0) {
-      const float alpha = expf(s.mrow[r] - mx);
-      s.lrow[r] = s.lrow[r] * alpha + sum;
-      s.mrow[r] = mx;
-      s.arow[r] = alpha;
-    }
+    uint4* dst = reinterpret_cast<uint4*>((which ? s.vp : s.kp) + j * ld + part * 16);
+    dst[0] = make_uint4(out[0], out[1], out[2], out[3]);
+    dst[1] = make_uint4(out[4], out[5], out[6], out[7]);
   }
-  __syncthreads();
-  for (int i = tid; i < R * Dh; i += NT) {
-    const int r = i / Dh, d = i % Dh;
-    float pv = 0.0f;
-    for (int j = 0; j < blk; ++j) pv = fmaf(s.sb[r * blk + j], s.vb[j * Dh + d], pv);
-    s.acc[i] = s.acc[i] * s.arow[r] + pv;
-  }
-  __syncthreads();
 }
 
-__global__ void __launch_bounds__(NT)
-flash_decode_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kc,
-                    const __nv_bfloat16* __restrict__ ks,
-                    const uint8_t* __restrict__ vc,
-                    const __nv_bfloat16* __restrict__ vs,
-                    const int* __restrict__ pad, float* __restrict__ out, int T,
-                    int Kh, int G, int Dh, int Gs, int pos, int blk,
-                    float softcap, float scale) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const Smem s = carve(sm, G, Dh, blk);
-  const size_t qoff = ((size_t)b * Kh + h) * G * Dh;
-  for (int i = threadIdx.x; i < G * Dh; i += NT) s.qs[i] = q[qoff + i];
-  init_rows(sm, G, Dh, blk, pos, 0, G);
-  const int pad_b = pad != nullptr ? pad[b] : 0;
-  __syncthreads();
-  const size_t ld_code = (size_t)Kh * Dh, ld_scale = (size_t)Kh * Gs;
-  for (int t = pad_b / blk; t <= pos / blk; ++t) {
-    const size_t slot0 = ((size_t)b * T + (size_t)t * blk) * Kh + h;
-    online_softmax_step(sm, G, Dh, Gs, blk, kc + slot0 * Dh, ks + slot0 * Gs,
-                        vc + slot0 * Dh, vs + slot0 * Gs, ld_code, ld_scale,
-                        t * blk, pad_b, softcap, scale);
-  }
-  for (int i = threadIdx.x; i < G * Dh; i += NT) out[qoff + i] = s.acc[i] / s.lrow[i / Dh];
-}
+// ---------------------------------------------------------------------------
+// query rows of a team
+// ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(NT)
-paged_flash_decode_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kc,
-                          const __nv_bfloat16* __restrict__ ks,
-                          const uint8_t* __restrict__ vc,
-                          const __nv_bfloat16* __restrict__ vs,
-                          const int* __restrict__ page_table,
-                          const int* __restrict__ positions, float* __restrict__ out,
-                          int NP, int page, int Kh, int G, int Dh, int Gs,
-                          float softcap, float scale) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const Smem s = carve(sm, G, Dh, page);
-  const size_t qoff = ((size_t)b * Kh + h) * G * Dh;
-  const int pos = positions[b];
-  for (int i = threadIdx.x; i < G * Dh; i += NT) s.qs[i] = q[qoff + i];
-  init_rows(sm, G, Dh, page, pos, 0, G);
-  __syncthreads();
-  const size_t ld_code = (size_t)Kh * Dh, ld_scale = (size_t)Kh * Gs;
-  for (int t = 0; t <= min(pos / page, NP - 1); ++t) {
-    const size_t slot0 = (size_t)page_table[(size_t)b * NP + t] * page * Kh + h;
-    online_softmax_step(sm, G, Dh, Gs, page, kc + slot0 * Dh, ks + slot0 * Gs,
-                        vc + slot0 * Dh, vs + slot0 * Gs, ld_code, ld_scale,
-                        t * page, 0, softcap, scale);
-  }
-  for (int i = threadIdx.x; i < G * Dh; i += NT) out[qoff + i] = s.acc[i] / s.lrow[i / Dh];
-}
-
-// q and out are (B, C, Kh, G, Dh): row r = qi*G + gi of (b, h) lies at
-// ((b*C + qi)*Kh + h)*G + gi.
-__device__ __forceinline__ size_t prefill_row(int b, int h, int row, int C, int Kh,
-                                              int G) {
+// q and out are (B, C, Kh, G, Dh) (decode: C = 1): row r = qi*G + gi of
+// (b, h) lies at ((b*C + qi)*Kh + h)*G + gi.
+__device__ __forceinline__ size_t row_index(int b, int h, int row, int C, int Kh, int G) {
   const int qi = row / G, gi = row % G;
   return (((size_t)b * C + qi) * Kh + h) * G + gi;
 }
 
-__global__ void __launch_bounds__(NT)
-paged_flash_prefill_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kc,
-                           const __nv_bfloat16* __restrict__ ks,
-                           const uint8_t* __restrict__ vc,
-                           const __nv_bfloat16* __restrict__ vs,
-                           const int* __restrict__ page_table,
-                           const int* __restrict__ start, float* __restrict__ out,
-                           int C, int NP, int page, int Kh, int G, int Dh, int Gs,
-                           float softcap, float scale) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x, h = blockIdx.y, row0 = blockIdx.z * PREFILL_ROWS;
-  const int R = min(PREFILL_ROWS, C * G - row0);
-  const Smem s = carve(sm, R, Dh, page);
-  for (int i = threadIdx.x; i < R * Dh; i += NT) {
-    const int r = i / Dh, d = i % Dh;
-    s.qs[i] = q[prefill_row(b, h, row0 + r, C, Kh, G) * Dh + d];
+// Splits the team's 16 rows row0 .. row0+15 (those below `rows`; the rest
+// zero) into the three bf16 terms in tm.qs; returns how many leading terms
+// are nonzero in some row (1, 2 or 3).  Every thread of the team calls it.
+template <int DH>
+__device__ __forceinline__ int split_q(const Team& tm, int bar, const float* __restrict__ q,
+                                       int b, int h, int row0, int rows, int C, int Kh,
+                                       int G) {
+  constexpr int LD = DH + 8, NV = ROWS * DH / 2 / TEAM;  // float2 loads per thread
+  const int tid = threadIdx.x % TEAM;
+  float2 x[NV];  // all loads first: one round trip, not NV
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int i = tid + TEAM * k, r = i / (DH / 2), d = (i % (DH / 2)) * 2;
+    x[k] = row0 + r < rows ? *reinterpret_cast<const float2*>(
+                                 q + row_index(b, h, row0 + r, C, Kh, G) * DH + d)
+                           : make_float2(0.0f, 0.0f);
   }
-  const int st = start[b];
-  init_rows(sm, R, Dh, page, st, row0, G);
-  const int last = st + (row0 + R - 1) / G;  // horizon of the tile's last row
+  bool any_mid = false, any_lo = false;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int i = tid + TEAM * k, r = i / (DH / 2), d = (i % (DH / 2)) * 2;
+    store_terms(tm.qs + r * LD + d, ROWS * LD, x[k].x, x[k].y, any_mid, any_lo);
+  }
+  int* flags = reinterpret_cast<int*>(tm.red + 2 * TEAM_WARPS * ROWS);
+  const int f = (__any_sync(0xffffffffu, any_lo) ? 2 : 0) |
+                (__any_sync(0xffffffffu, any_mid) ? 1 : 0);
+  if (threadIdx.x % 32 == 0) flags[tid / 32] = f;
+  team_sync(bar);
+  int all = 0;
+#pragma unroll
+  for (int w = 0; w < TEAM_WARPS; ++w) all |= flags[w];
+  return (all & 2) ? 3 : (all & 1) ? 2 : 1;
+}
+
+// ---------------------------------------------------------------------------
+// the page partial and the fold: the single copy of the math
+// ---------------------------------------------------------------------------
+
+// A team's page partial over `width` slots (a multiple of 8, <= 128) at
+// logical slots kpos0 .. kpos0+width-1, for the 16 rows split in tm.qs.
+// Lane L of team warp w holds rows g = L/4 (index 0) and g + 8 (index 1):
+// m[i] and l[i] for its rows (the same in every warp of the team) and, in
+// the MMA's C layout, acc[n][0..1] (row g) and acc[n][2..3] (row g+8) at
+// columns 8*(w*DH/32 + n) + 2*(L%4) + {0, 1}.  hz[i] is the row's horizon.
+// Every thread of the team calls it; it ends with the team met.  FULL:
+// width == MAXP, known when compiled, so the width tests fold away.
+template <int DH, bool FULL>
+__device__ __forceinline__ void page_partial(const Smem& s, const Team& tm, int bar, int nq,
+                                             int width, int kpos0, const int (&hz)[2],
+                                             int pad_lo, float softcap, float scale,
+                                             float (&m)[2], float (&l)[2],
+                                             float (&acc)[DH / 32][4]) {
+  constexpr int LD = DH + 8, NKS = DH / 16, NW = DH / 32;
+  const int lane = threadIdx.x % 32, t = lane % 4, g = lane / 4;
+  const int w = (threadIdx.x / 32) % TEAM_WARPS;
+  const int ntile = FULL ? MAXP / 8 : width / 8, n0 = 4 * w;  // this warp's S: n0 .. n0+3
+  const uint32_t qb = smem_addr(tm.qs), kb = smem_addr(s.kp), vb = smem_addr(s.vp),
+                 pb = smem_addr(tm.ps);
+  float* red_m = tm.red;
+  float* red_l = tm.red + TEAM_WARPS * ROWS;
+
+  // scores of this warp's slots: the nq terms of q in the order hi, mid,
+  // lo, each over all k-steps (a runtime loop around straight-line MMAs)
+  float sc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+#pragma unroll 1
+  for (int term = 0; term < nq; ++term) {
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks) {
+      uint32_t a[4];
+      ldmatrix_x4(a, qb + ((term * ROWS + lane % 16) * LD + ks * 16 + (lane / 16) * 8) * 2);
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        const int n = n0 + j;
+        if (n < ntile) {
+          uint32_t b[4];
+          ldmatrix_x4(b, kb + ((n * 8 + (lane / 16) * 8 + lane % 8) * LD + ks * 16 +
+                               ((lane / 8) % 2) * 8) * 2);
+          mma_bf16(sc[j], a, b[0], b[1]);
+          if (n + 1 < ntile) mma_bf16(sc[j + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // scale, softcap, mask; the rows' maxima over the page, in warp order
+  float mw[2] = {NEG, NEG};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (n0 + j < ntile) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = sc[j][e] * scale;
+        if (softcap > 0.0f) v = tanhf(v / softcap) * softcap;
+        const int kpos = kpos0 + (n0 + j) * 8 + 2 * t + (e & 1);
+        if (kpos > hz[e / 2] || kpos < pad_lo) v = NEG;
+        sc[j][e] = v;
+        mw[e / 2] = fmaxf(mw[e / 2], v);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mw[i] = fmaxf(mw[i], __shfl_xor_sync(0xffffffffu, mw[i], 1));
+    mw[i] = fmaxf(mw[i], __shfl_xor_sync(0xffffffffu, mw[i], 2));
+    if (t == 0) red_m[w * ROWS + g + 8 * i] = mw[i];
+  }
+  team_sync(bar);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = NEG;
+#pragma unroll
+    for (int v = 0; v < TEAM_WARPS; ++v) m[i] = fmaxf(m[i], red_m[v * ROWS + g + 8 * i]);
+  }
+
+  // p = exp(s - m_p) into the team's p terms (zeros past the page up to
+  // the last k-step); l_p = the warps' row sums added in warp order
+  float lw[2] = {0.0f, 0.0f};
+  bool unused_mid = false, unused_lo = false;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = n0 + j;
+    if (n < ntile) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sc[j][e] - m[e / 2]);
+        sc[j][e] = p;
+        lw[e / 2] += p;
+      }
+    }
+    if (n < 2 * ((ntile + 1) / 2)) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        store_terms(tm.ps + (g + 8 * i) * LDP + n * 8 + 2 * t, ROWS * LDP, sc[j][2 * i],
+                    sc[j][2 * i + 1], unused_mid, unused_lo);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lw[i] += __shfl_xor_sync(0xffffffffu, lw[i], 1);
+    lw[i] += __shfl_xor_sync(0xffffffffu, lw[i], 2);
+    if (t == 0) red_l[w * ROWS + g + 8 * i] = lw[i];
+  }
+  team_sync(bar);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = 0.0f;
+#pragma unroll
+    for (int v = 0; v < TEAM_WARPS; ++v) l[i] += red_l[v * ROWS + g + 8 * i];
+  }
+
+  // acc_p = p . V for this warp's DH/4 columns over the whole page, per
+  // k-step the three terms of p in the order hi, mid, lo
+#pragma unroll
+  for (int n = 0; n < NW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  const int vrow = ((lane / 8) % 2) * 8 + lane % 8;
+#pragma unroll
+  for (int ks = 0; ks < MAXP / 16; ++ks) {
+    if (2 * ks < ntile) {
+      uint32_t pa[3][4];
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+        ldmatrix_x4(pa[term],
+                    pb + ((term * ROWS + lane % 16) * LDP + ks * 16 + (lane / 16) * 8) * 2);
+      if constexpr (NW == 1) {
+        uint32_t b[2];
+        ldmatrix_x2_trans(b, vb + ((ks * 16 + vrow) * LD + w * 8) * 2);
+#pragma unroll
+        for (int term = 0; term < 3; ++term) mma_bf16(acc[0], pa[term], b[0], b[1]);
+      } else {
+#pragma unroll
+        for (int n = 0; n < NW; n += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vb + ((ks * 16 + vrow) * LD + (w * NW + n) * 8 +
+                                     (lane / 16) * 8) * 2);
+#pragma unroll
+          for (int term = 0; term < 3; ++term) {
+            mma_bf16(acc[n], pa[term], b[0], b[1]);
+            mma_bf16(acc[n + 1], pa[term], b[2], b[3]);
+          }
+        }
+      }
+    }
+  }
+  team_sync(bar);  // the team's p terms and sums are free again
+}
+
+struct FoldWeights {
+  float old_w, new_w;
+};
+
+// Folds a partial's (m_p, l_p) into a row's running (M, L); returns the
+// weights of the old ACC and of acc_p for fold_value.
+__device__ __forceinline__ FoldWeights fold_stats(float& M, float& L, float m_p, float l_p) {
+  const float mn = fmaxf(M, m_p);
+  const FoldWeights w{expf(M - mn), expf(m_p - mn)};
+  L = __fmaf_rn(L, w.old_w, __fmul_rn(l_p, w.new_w));
+  M = mn;
+  return w;
+}
+
+__device__ __forceinline__ float fold_value(float acc, float acc_p, FoldWeights w) {
+  return __fmaf_rn(acc, w.old_w, __fmul_rn(acc_p, w.new_w));
+}
+
+// ---------------------------------------------------------------------------
+// decode: page partials to scratch, then the ordered fold
+// ---------------------------------------------------------------------------
+
+// Scratch of the decode: acc (B, Kh, NP, G, Dh) then (m, l) (B, Kh, NP, G, 2).
+struct Partials {
+  float* acc;
+  float* ml;
+};
+
+__device__ __forceinline__ void live_pages(int b, const int* positions, const int* pad,
+                                           int pos, int page, int NP, int& hz, int& pad_lo,
+                                           int& t0, int& t1) {
+  hz = positions != nullptr ? positions[b] : pos;
+  pad_lo = pad != nullptr ? pad[b] : 0;
+  t0 = pad_lo / page;
+  t1 = min(hz / page, NP - 1);
+}
+
+// grid (NP, Kh, B), one team: block (t, h, b) takes logical page t of row b.
+template <int DH, bool FULL>
+__global__ void __launch_bounds__(TEAM)
+decode_page_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kc,
+                   const bf16* __restrict__ ks, const uint8_t* __restrict__ vc,
+                   const bf16* __restrict__ vs, const int* __restrict__ page_table,
+                   const int* __restrict__ positions, const int* __restrict__ pad,
+                   Partials part, int NP, int page, int Kh, int G, int Gs, int pos,
+                   float softcap, float scale) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const Smem s = carve(sm, page, Kh, Gs, DH, 1);
+  const Team tm = team_of(s, 0, DH);
+  // the page id, the position and the first rows of q load in one round trip
+  const size_t pid =
+      page_table != nullptr ? (size_t)page_table[(size_t)b * NP + t] : (size_t)b * NP + t;
+  int hz, pad_lo, t0, t1;
+  live_pages(b, positions, pad, pos, page, NP, hz, pad_lo, t0, t1);
+  int nq = split_q<DH>(tm, 1, q, b, h, 0, G, 1, Kh, G);
+  if (t < t0 || t > t1) return;
+  stage_page<DH, TEAM>(s.stage, kc, ks, vc, vs, pid, FULL ? MAXP : page, Kh, h, Gs);
+  init_block(s, page, DH);
+  const int lane = threadIdx.x % 32, g = lane / 4, w = threadIdx.x / 32;
+  cp_async_wait_all();
   __syncthreads();
-  const size_t ld_code = (size_t)Kh * Dh, ld_scale = (size_t)Kh * Gs;
-  for (int t = 0; t <= min(last / page, NP - 1); ++t) {
-    const size_t slot0 = (size_t)page_table[(size_t)b * NP + t] * page * Kh + h;
-    online_softmax_step(sm, R, Dh, Gs, page, kc + slot0 * Dh, ks + slot0 * Gs,
-                        vc + slot0 * Dh, vs + slot0 * Gs, ld_code, ld_scale,
-                        t * page, 0, softcap, scale);
+  dequant_page<DH, TEAM>(s, s.stage, FULL ? MAXP : page, Kh, h, Gs);
+  __syncthreads();
+  const int hzr[2] = {hz, hz};
+  const size_t slot = ((size_t)b * Kh + h) * NP + t;
+  for (int row0 = 0; row0 < G; row0 += ROWS) {
+    if (row0 > 0) nq = split_q<DH>(tm, 1, q, b, h, row0, G, 1, Kh, G);
+    float m[2], l[2], acc[DH / 32][4];
+    page_partial<DH, FULL>(s, tm, 1, nq, page, t * page, hzr, pad_lo, softcap, scale, m, l,
+                           acc);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + g + 8 * i;
+      if (r >= G) continue;
+      const size_t base = slot * G + r;
+      if (w == 0 && lane % 4 == 0) {
+        part.ml[base * 2] = m[i];
+        part.ml[base * 2 + 1] = l[i];
+      }
+#pragma unroll
+      for (int n = 0; n < DH / 32; ++n)
+        *reinterpret_cast<float2*>(part.acc + base * DH + (w * DH / 32 + n) * 8 +
+                                   2 * (lane % 4)) = make_float2(acc[n][2 * i],
+                                                                 acc[n][2 * i + 1]);
+    }
   }
-  for (int i = threadIdx.x; i < R * Dh; i += NT) {
-    const int r = i / Dh, d = i % Dh;
-    out[prefill_row(b, h, row0 + r, C, Kh, G) * Dh + d] = s.acc[i] / s.lrow[r];
+}
+
+constexpr int FOLD_THREADS = 128;
+constexpr int FOLD_BATCH = 8;  // pages whose partials load in one round trip
+
+// grid (ceil(G*Dh/128), Kh, B), one output element a thread: folds the live
+// pages' partials of (b, h) in page order and divides.
+__global__ void __launch_bounds__(FOLD_THREADS)
+decode_fold_kernel(Partials part, const int* __restrict__ positions,
+                   const int* __restrict__ pad, float* __restrict__ out, int NP, int page,
+                   int Kh, int G, int Dh, int pos) {
+  const int i = blockIdx.x * FOLD_THREADS + threadIdx.x, h = blockIdx.y, b = blockIdx.z;
+  if (i >= G * Dh) return;
+  int hz, pad_lo, t0, t1;
+  live_pages(b, positions, pad, pos, page, NP, hz, pad_lo, t0, t1);
+  const int r = i / Dh, d = i % Dh;
+  const size_t row = ((size_t)b * Kh + h) * NP * G + r;  // page t's partial: row + t*G
+  float M = NEG, L = 0.0f, A = 0.0f;
+  for (int t = t0; t <= t1; t += FOLD_BATCH) {
+    float2 ml[FOLD_BATCH];
+    float a[FOLD_BATCH];
+#pragma unroll
+    for (int k = 0; k < FOLD_BATCH; ++k) {
+      if (t + k <= t1) {
+        const size_t idx = row + (size_t)(t + k) * G;
+        ml[k] = reinterpret_cast<const float2*>(part.ml)[idx];
+        a[k] = part.acc[idx * Dh + d];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < FOLD_BATCH; ++k)
+      if (t + k <= t1) {
+        const FoldWeights w = fold_stats(M, L, ml[k].x, ml[k].y);
+        A = fold_value(A, a[k], w);
+      }
+  }
+  out[(((size_t)b * Kh + h) * G + r) * Dh + d] = __fdiv_rn(A, L);
+}
+
+// ---------------------------------------------------------------------------
+// prefill: tiles that keep the page
+// ---------------------------------------------------------------------------
+
+// grid (tiles, Kh, B), tile = tiles - 1 - blockIdx.x (the heaviest first);
+// team k of the block holds rows tile*TILE + 16k .. +15.
+template <int DH, bool FULL>
+__global__ void __launch_bounds__(Prefill<DH>::THREADS)
+prefill_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kc,
+               const bf16* __restrict__ ks, const uint8_t* __restrict__ vc,
+               const bf16* __restrict__ vs, const int* __restrict__ page_table,
+               const int* __restrict__ start, float* __restrict__ out, int C, int NP,
+               int page, int Kh, int G, int Gs, float softcap, float scale) {
+  constexpr int TILE = Prefill<DH>::TILE, NT = Prefill<DH>::THREADS;
+  extern __shared__ __align__(16) uint8_t sm[];
+  const int pg = FULL ? MAXP : page;  // known when compiled for full pages
+  const int tile = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const Smem s = carve(sm, page, Kh, Gs, DH, 2);
+  const int sbytes = stage_bytes(page, Kh, Gs, DH);
+  const int rows = C * G, st = start[b];
+  const int last = st + (min((tile + 1) * TILE, rows) - 1) / G;  // the tile's last horizon
+  const int npages = min(last / page, NP - 1) + 1;
+  const int* pt = page_table + (size_t)b * NP;
+  stage_page<DH, NT>(s.stage, kc, ks, vc, vs, (size_t)pt[0], pg, Kh, h, Gs);
+  int next_pid = npages > 1 ? pt[1] : 0;  // loaded a page ahead of its use
+  init_block(s, page, DH);
+
+  const int team = threadIdx.x / TEAM, bar = 1 + team;
+  const int lane = threadIdx.x % 32, g = lane / 4, w = (threadIdx.x / 32) % TEAM_WARPS;
+  const Team tm = team_of(s, team, DH);
+  const int row0 = tile * TILE + team * ROWS;
+  const bool active = row0 < rows;
+  const int tlast = st + (min(row0 + ROWS, rows) - 1) / G;  // the team's last horizon
+  const int nq = active ? split_q<DH>(tm, bar, q, b, h, row0, rows, C, Kh, G) : 0;
+  const int hz[2] = {st + (row0 + g) / G, st + (row0 + g + 8) / G};
+
+  float M[2] = {NEG, NEG}, L[2] = {0.0f, 0.0f}, acc[DH / 32][4];
+#pragma unroll
+  for (int n = 0; n < DH / 32; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  for (int t = 0; t < npages; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // page t staged; every team is done with page t-1
+    if (t + 1 < npages) {
+      stage_page<DH, NT>(s.stage + ((t + 1) % 2) * sbytes, kc, ks, vc, vs, (size_t)next_pid,
+                         pg, Kh, h, Gs);
+      if (t + 2 < npages) next_pid = pt[t + 2];
+    }
+    dequant_page<DH, NT>(s, s.stage + (t % 2) * sbytes, pg, Kh, h, Gs);
+    __syncthreads();
+    // a page wholly past the team's rows would fold with weight 0: skip it
+    if (!active || t * page > tlast) continue;
+    float mp[2], lp[2], accp[DH / 32][4];
+    page_partial<DH, FULL>(s, tm, bar, nq, page, t * page, hz, 0, softcap, scale, mp, lp,
+                           accp);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const FoldWeights fw = fold_stats(M[i], L[i], mp[i], lp[i]);
+#pragma unroll
+      for (int n = 0; n < DH / 32; ++n) {
+        acc[n][2 * i] = fold_value(acc[n][2 * i], accp[n][2 * i], fw);
+        acc[n][2 * i + 1] = fold_value(acc[n][2 * i + 1], accp[n][2 * i + 1], fw);
+      }
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+    if (r >= rows) continue;
+    float* o = out + row_index(b, h, r, C, Kh, G) * DH + w * DH / 4 + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < DH / 32; ++n)
+      *reinterpret_cast<float2*>(o + n * 8) =
+          make_float2(__fdiv_rn(acc[n][2 * i], L[i]), __fdiv_rn(acc[n][2 * i + 1], L[i]));
   }
 }
 
@@ -278,42 +735,77 @@ int allow_smem(K kernel, int smem) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
-}  // namespace
+bool supported(int Dh, int page) {
+  return (Dh == 32 || Dh == 64 || Dh == 128) && page % 8 == 0 && page > 0 && page <= MAXP;
+}
 
-// Each entry point returns cudaGetLastError() after the launch.
-
-// `pad` may be null.
-extern "C" int flash_decode(const void* q, const void* k_codes, const void* k_scale,
-                            const void* v_codes, const void* v_scale, const void* pad,
-                            void* out, int B, int T, int Kh, int G, int Dh, int Gs,
-                            int pos, int blk, float softcap, float scale,
-                            void* stream) {
-  const int smem = smem_bytes(G, Dh, blk);
-  if (const int err = allow_smem(flash_decode_kernel, smem)) return err;
-  flash_decode_kernel<<<dim3(B, Kh), NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const uint8_t*>(k_codes),
-      static_cast<const __nv_bfloat16*>(k_scale), static_cast<const uint8_t*>(v_codes),
-      static_cast<const __nv_bfloat16*>(v_scale), static_cast<const int*>(pad),
-      static_cast<float*>(out), T, Kh, G, Dh, Gs, pos, blk, softcap, scale);
+template <int DH, bool FULL>
+int launch_decode(const void* q, const void* kc, const void* ks, const void* vc,
+                  const void* vs, const void* page_table, const void* positions,
+                  const void* pad, void* scratch, void* out, int B, int NP, int page, int Kh,
+                  int G, int Gs, int pos, float softcap, float scale, cudaStream_t stream) {
+  const int smem = smem_bytes(page, Kh, Gs, DH, 1, 1);
+  if (const int err = allow_smem(decode_page_kernel<DH, FULL>, smem)) return err;
+  float* acc = static_cast<float*>(scratch);
+  const Partials part{acc, acc + (size_t)B * Kh * NP * G * DH};
+  decode_page_kernel<DH, FULL><<<dim3(NP, Kh, B), TEAM, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const uint8_t*>(kc),
+      static_cast<const bf16*>(ks), static_cast<const uint8_t*>(vc),
+      static_cast<const bf16*>(vs), static_cast<const int*>(page_table),
+      static_cast<const int*>(positions), static_cast<const int*>(pad), part, NP, page, Kh,
+      G, Gs, pos, softcap, scale);
+  if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  const dim3 grid((G * DH + FOLD_THREADS - 1) / FOLD_THREADS, Kh, B);
+  decode_fold_kernel<<<grid, FOLD_THREADS, 0, stream>>>(
+      part, static_cast<const int*>(positions), static_cast<const int*>(pad),
+      static_cast<float*>(out), NP, page, Kh, G, DH, pos);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DH, bool FULL>
+int launch_prefill(const void* q, const void* kc, const void* ks, const void* vc,
+                   const void* vs, const void* page_table, const void* start, void* out,
+                   int B, int C, int NP, int page, int Kh, int G, int Gs, float softcap,
+                   float scale, cudaStream_t stream) {
+  using P = Prefill<DH>;
+  const int smem = smem_bytes(page, Kh, Gs, DH, 2, P::TEAMS);
+  if (const int err = allow_smem(prefill_kernel<DH, FULL>, smem)) return err;
+  const dim3 grid((C * G + P::TILE - 1) / P::TILE, Kh, B);
+  prefill_kernel<DH, FULL><<<grid, P::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const uint8_t*>(kc),
+      static_cast<const bf16*>(ks), static_cast<const uint8_t*>(vc),
+      static_cast<const bf16*>(vs), static_cast<const int*>(page_table),
+      static_cast<const int*>(start), static_cast<float*>(out), C, NP, page, Kh, G, Gs,
+      softcap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Each entry point returns cudaGetLastError() after its launches, or
+// cudaErrorInvalidValue for a Dh or page it does not take.
+
+// One-token decode over a pool, or over a contiguous cache (B, NP*page, Kh,
+// Dh) when `page_table` is null.  `positions` (B,) may be null: every row
+// at `pos`.  `pad` (B,) may be null: no left pad.  `scratch` holds
+// B*Kh*NP*G*(Dh + 2) floats.  Two kernels: the page partials, the fold.
 extern "C" int paged_flash_decode(const void* q, const void* k_codes, const void* k_scale,
                                   const void* v_codes, const void* v_scale,
                                   const void* page_table, const void* positions,
-                                  void* out, int B, int NP, int page, int Kh, int G,
-                                  int Dh, int Gs, float softcap, float scale,
-                                  void* stream) {
-  const int smem = smem_bytes(G, Dh, page);
-  if (const int err = allow_smem(paged_flash_decode_kernel, smem)) return err;
-  paged_flash_decode_kernel<<<dim3(B, Kh), NT, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const uint8_t*>(k_codes),
-      static_cast<const __nv_bfloat16*>(k_scale), static_cast<const uint8_t*>(v_codes),
-      static_cast<const __nv_bfloat16*>(v_scale), static_cast<const int*>(page_table),
-      static_cast<const int*>(positions), static_cast<float*>(out), NP, page, Kh, G, Dh,
-      Gs, softcap, scale);
-  return static_cast<int>(cudaGetLastError());
+                                  const void* pad, void* scratch, void* out, int B, int NP,
+                                  int page, int Kh, int G, int Dh, int Gs, int pos,
+                                  float softcap, float scale, void* stream) {
+  if (!supported(Dh, page)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define XRNPE_DECODE(DH, FULL)                                                            \
+  launch_decode<DH, FULL>(q, k_codes, k_scale, v_codes, v_scale, page_table, positions,  \
+                          pad, scratch, out, B, NP, page, Kh, G, Gs, pos, softcap, scale, st)
+  if (page == MAXP)
+    return Dh == 32 ? XRNPE_DECODE(32, true)
+                    : Dh == 64 ? XRNPE_DECODE(64, true) : XRNPE_DECODE(128, true);
+  return Dh == 32 ? XRNPE_DECODE(32, false)
+                  : Dh == 64 ? XRNPE_DECODE(64, false) : XRNPE_DECODE(128, false);
+#undef XRNPE_DECODE
 }
 
 extern "C" int paged_flash_prefill(const void* q, const void* k_codes, const void* k_scale,
@@ -321,14 +813,15 @@ extern "C" int paged_flash_prefill(const void* q, const void* k_codes, const voi
                                    const void* page_table, const void* start, void* out,
                                    int B, int C, int NP, int page, int Kh, int G, int Dh,
                                    int Gs, float softcap, float scale, void* stream) {
-  const int smem = smem_bytes(PREFILL_ROWS, Dh, page);
-  if (const int err = allow_smem(paged_flash_prefill_kernel, smem)) return err;
-  const dim3 grid(B, Kh, (C * G + PREFILL_ROWS - 1) / PREFILL_ROWS);
-  paged_flash_prefill_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const uint8_t*>(k_codes),
-      static_cast<const __nv_bfloat16*>(k_scale), static_cast<const uint8_t*>(v_codes),
-      static_cast<const __nv_bfloat16*>(v_scale), static_cast<const int*>(page_table),
-      static_cast<const int*>(start), static_cast<float*>(out), C, NP, page, Kh, G, Dh,
-      Gs, softcap, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (!supported(Dh, page)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define XRNPE_PREFILL(DH, FULL)                                                           \
+  launch_prefill<DH, FULL>(q, k_codes, k_scale, v_codes, v_scale, page_table, start, out, \
+                           B, C, NP, page, Kh, G, Gs, softcap, scale, st)
+  if (page == MAXP)
+    return Dh == 32 ? XRNPE_PREFILL(32, true)
+                    : Dh == 64 ? XRNPE_PREFILL(64, true) : XRNPE_PREFILL(128, true);
+  return Dh == 32 ? XRNPE_PREFILL(32, false)
+                  : Dh == 64 ? XRNPE_PREFILL(64, false) : XRNPE_PREFILL(128, false);
+#undef XRNPE_PREFILL
 }

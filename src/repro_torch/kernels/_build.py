@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  Libraries land in ``build/repro_torch_kernels/`` at the root
-of the checkout, keyed by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads at once.
+seconds); each wrapper module keeps the ``argtypes`` of its entry points
+in a module-level ``_ARGTYPES`` table, which ``bind`` applies.
+Libraries land in ``build/repro_torch_kernels/`` at the root of the
+checkout, keyed by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one loads at once.
 ``build_all()`` starts one ``nvcc`` per source, all at once.
 """
 
@@ -18,7 +20,7 @@ import subprocess
 import threading
 from typing import Dict, List
 
-__all__ = ["SOURCES", "CSRC_DIR", "BUILD_DIR", "build_all", "load",
+__all__ = ["SOURCES", "CSRC_DIR", "BUILD_DIR", "bind", "build_all", "load",
            "nvcc_path"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -101,3 +103,15 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_lib_path(name))
             _LIBS[name] = lib
         return lib
+
+
+def bind(name: str, argtypes: Dict[str, list]) -> ctypes.CDLL:
+    """``load(name)`` with each entry point's ``argtypes`` set from
+    ``argtypes`` (name -> list of ctypes types) and an ``int`` result."""
+    lib = load(name)
+    for fn_name, types in argtypes.items():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
+    return lib

@@ -32,14 +32,14 @@ def dequant_plain(words: torch.Tensor, scales: torch.Tensor,
     return ref.dequant_ref(words, scales, spec, scales.shape[-1])[:k, :n]
 
 
+_ARGTYPES = {
+    "dequant": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
+    + [ctypes.c_void_p],
+}
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("dequant")
-    fn = lib.dequant
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.bind("dequant", _ARGTYPES)
 
 
 def dequant(words: torch.Tensor, scales: torch.Tensor, spec: FormatSpec,

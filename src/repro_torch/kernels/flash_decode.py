@@ -2,12 +2,27 @@
 ``repro.kernels.flash_decode``): contiguous decode, paged decode and
 paged chunk prefill.
 
-Each wrapper launches its CUDA kernel of ``csrc/flash_decode.cu`` on a
-CUDA tensor and runs its plain version on a CPU tensor:
+Each wrapper launches ``csrc/flash_decode.cu`` on a CUDA tensor and runs
+its plain version on a CPU tensor:
 
   flash_decode        / flash_decode_plain        <- flash_decode_pallas
   paged_flash_decode  / paged_flash_decode_plain  <- paged_flash_decode_pallas
   paged_flash_prefill / paged_flash_prefill_plain <- paged_flash_prefill_pallas
+
+On the card the two decode wrappers share one C entry point
+(``paged_flash_decode``): split-KV page partials, one block per (b,
+kv-head, page), folded in page order by a second kernel of the same
+entry.  ``flash_decode`` calls it with contiguous addressing (a cache
+(B, T, Kh, Dh) is a pool of B*T/blk pages) and its scalar position and
+left pad; each wrapper counts its own launches.  The prefill kernel
+keeps each page dequantized in shared memory for a tile of 32 query rows
+and folds the same page partials in registers.  Both compute a partial
+with the same bf16 tensor-core code (a team of four warps per 16 rows;
+q and p split into three bf16 terms, K and V exact in bf16) and fold
+with the same function, so paged decode equals contiguous decode
+bitwise when page == blk, and a C = 1 prefill chunk equals paged decode
+bitwise.  The kernels take Dh in {32, 64, 128} and pages (KV blocks) of
+8..128 slots in steps of 8.
 
 The plain versions are the twins of the reference's blocked XLA loops
 (``repro.models.attention.decode_quantized_blocks``,
@@ -157,23 +172,18 @@ def paged_flash_prefill_plain(q, k_codes, k_scale, v_codes, v_scale,
 
 
 _ARGTYPES = {
-    "flash_decode": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-    + [ctypes.c_float] * 2 + [ctypes.c_void_p],
-    "paged_flash_decode": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    "paged_flash_decode": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
     + [ctypes.c_float] * 2 + [ctypes.c_void_p],
     "paged_flash_prefill": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
     + [ctypes.c_float] * 2 + [ctypes.c_void_p],
 }
 
+_KERNEL_DH = (32, 64, 128)
+_MAX_PAGE = 128
+
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_decode")
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return lib
+    return _build.bind("flash_decode", _ARGTYPES)
 
 
 def _check_pool(k_codes, k_scale, v_codes, v_scale, kh: int, dh: int):
@@ -206,6 +216,48 @@ def _cuda_operands(q, named, index_names=()):
         if x.device != q.device or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
     return q.float().contiguous()
+
+
+def _check_kernel_shape(name: str, dh: int, page: int, *pool) -> None:
+    """Raises for what the CUDA kernels do not take: Dh outside {32, 64,
+    128}, a page (KV block) that is not a multiple of 8 up to 128, or
+    pool operands not 16-byte aligned (pages are copied 16 bytes at a
+    time)."""
+    if dh not in _KERNEL_DH or page % 8 or not 0 < page <= _MAX_PAGE:
+        raise ValueError(f"{name} on the card takes Dh in {_KERNEL_DH} and "
+                         f"a page of 8..{_MAX_PAGE} slots in steps of 8, "
+                         f"not Dh={dh}, page={page}")
+    if any(x.data_ptr() % 16 for x in pool):
+        raise ValueError(f"{name}: the pool's codes and scales must start "
+                         f"on 16-byte boundaries")
+
+
+def _decode_cuda(q, k_codes, k_scale, v_codes, v_scale, page: int,
+                 n_pages: int, page_table, positions, pad, pos: int,
+                 softcap: float) -> torch.Tensor:
+    """One launch of the decode entry point (page partials, then their
+    fold in page order) on checked operands; q (B, Kh, G, Dh) float32
+    contiguous.  A null ``page_table`` addresses a contiguous cache
+    (B, n_pages * page, Kh, Dh); a null ``positions`` puts every row at
+    ``pos``; a null ``pad`` means no left pad.  Counts nothing: the
+    wrappers count their own launches."""
+    b, kh, g, dh = q.shape
+    _check_kernel_shape("decode", dh, page, k_codes, k_scale, v_codes,
+                        v_scale)
+    scratch = torch.empty(b * kh * n_pages * g * (dh + 2),
+                          dtype=torch.float32, device=q.device)
+    out = torch.empty((b, kh, g, dh), dtype=torch.float32, device=q.device)
+    ptr = [None if x is None else x.data_ptr()
+           for x in (page_table, positions, pad)]
+    err = _lib().paged_flash_decode(
+        q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
+        v_codes.data_ptr(), v_scale.data_ptr(), *ptr, scratch.data_ptr(),
+        out.data_ptr(), b, n_pages, page, kh, g, dh, k_scale.shape[-1], pos,
+        float(softcap), 1.0 / math.sqrt(dh),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode launch failed: CUDA error {err}")
+    return out
 
 
 def flash_decode(q: torch.Tensor, k_codes: torch.Tensor,
@@ -243,15 +295,8 @@ def flash_decode(q: torch.Tensor, k_codes: torch.Tensor,
     q = _cuda_operands(q, dict(k_codes=k_codes, k_scale=k_scale,
                                v_codes=v_codes, v_scale=v_scale, pad=pad),
                        ("pad",))
-    out = torch.empty((b, kh, g, dh), dtype=torch.float32, device=q.device)
-    err = _lib().flash_decode(
-        q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
-        v_codes.data_ptr(), v_scale.data_ptr(),
-        None if pad is None else pad.data_ptr(), out.data_ptr(),
-        b, t, kh, g, dh, gs, pos, blk, float(softcap), 1.0 / math.sqrt(dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
+    out = _decode_cuda(q, k_codes, k_scale, v_codes, v_scale, blk, t // blk,
+                       None, None, pad, pos, softcap)
     flash_decode.launches += 1
     return out
 
@@ -289,17 +334,9 @@ def paged_flash_decode(q: torch.Tensor, k_codes: torch.Tensor,
                                v_codes=v_codes, v_scale=v_scale,
                                page_table=page_table, positions=positions),
                        ("page_table", "positions"))
-    page, gs = k_codes.shape[1], k_scale.shape[-1]
-    out = torch.empty((b, kh, g, dh), dtype=torch.float32, device=q.device)
-    err = _lib().paged_flash_decode(
-        q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
-        v_codes.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), b, page_table.shape[1], page,
-        kh, g, dh, gs, float(softcap), 1.0 / math.sqrt(dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"paged_flash_decode launch failed: CUDA error "
-                           f"{err}")
+    out = _decode_cuda(q, k_codes, k_scale, v_codes, v_scale,
+                       k_codes.shape[1], page_table.shape[1], page_table,
+                       positions, None, 0, softcap)
     paged_flash_decode.launches += 1
     return out
 
@@ -336,6 +373,8 @@ def paged_flash_prefill(q: torch.Tensor, k_codes: torch.Tensor,
                                page_table=page_table, start=start),
                        ("page_table", "start"))
     page, gs = k_codes.shape[1], k_scale.shape[-1]
+    _check_kernel_shape("paged_flash_prefill", dh, page, k_codes, k_scale,
+                        v_codes, v_scale)
     out = torch.empty((b, c, kh, g, dh), dtype=torch.float32, device=q.device)
     err = _lib().paged_flash_prefill(
         q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),

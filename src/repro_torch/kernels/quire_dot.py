@@ -49,14 +49,14 @@ def quire_dot_plain(a_codes: torch.Tensor, b_codes: torch.Tensor
     return hi.to(torch.int32)[:, None], lo.to(torch.int32)[:, None]
 
 
+_ARGTYPES = {
+    "quire_dot": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p],
+}
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("quire_dot")
-    fn = lib.quire_dot
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.bind("quire_dot", _ARGTYPES)
 
 
 def quire_dot(a_codes: torch.Tensor, b_codes: torch.Tensor

@@ -43,14 +43,14 @@ def rmmec_matmul_plain(x: torch.Tensor, words: torch.Tensor,
     return ref.rmmec_matmul_ref(x, words, scales, spec, scales.shape[-1])[:, :n]
 
 
+_ARGTYPES = {
+    "rmmec_matmul": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 15 + [ctypes.c_void_p],
+}
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("rmmec_matmul")
-    fn = lib.rmmec_matmul
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 15 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.bind("rmmec_matmul", _ARGTYPES)
 
 
 def _check(x, words, scales, mask, spec: FormatSpec, n: int):

@@ -69,7 +69,7 @@ def params():
     """The JAX parameters and their bridged copy (bf16 and f32 configs
     share the same f32 weights)."""
     jp = jT.lm_init(jax.random.PRNGKey(0), JCFG)
-    return jp, params_from_numpy(jax_to_numpy(jp))
+    return jp, params_from_numpy(jax_to_numpy(jp), device="cpu")
 
 
 def _run(engine_cls, cfg, p, reqs, **kw):

@@ -54,7 +54,7 @@ def _weight(shape, seed):
 def _bridged(jt):
     """A JAX PackedTensor handed to the port as numpy (words, scales and
     all, so both sides dequantize the same pack)."""
-    return params_from_numpy({"t": jax_to_numpy(jt)})["t"]
+    return params_from_numpy({"t": jax_to_numpy(jt)}, device="cpu")["t"]
 
 
 # ---------------------------------------------------------------------------

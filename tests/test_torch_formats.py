@@ -134,7 +134,7 @@ def test_scales_exactly_equal(name, method, group):
 def test_policy_agrees_on_bridged_tree(policy):
     cfg = jax_get_config("qwen2-0.5b").reduced()
     params = jT.lm_init(jax.random.PRNGKey(0), cfg)
-    tree = params_from_numpy(jax_to_numpy(params))
+    tree = params_from_numpy(jax_to_numpy(params), device="cpu")
     if policy.startswith("paper_mixed"):
         jp, tp = jpolicy.PrecisionPolicy.paper_mixed(), \
             tpolicy.PrecisionPolicy.paper_mixed()

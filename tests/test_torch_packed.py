@@ -62,7 +62,7 @@ def test_pack_tensor_exactly_equal(name, group, shape):
 
 def test_bridge_carries_packed_tensors():
     jt, tt = _pack_both("posit8_0", _weight((2, 64, 40), 2), 32)
-    bt = params_from_numpy({"w": jax_to_numpy(jt)})["w"]
+    bt = params_from_numpy({"w": jax_to_numpy(jt)}, device="cpu")["w"]
     for f in ("words", "scales", "mask"):
         assert torch.equal(getattr(bt, f), getattr(tt, f)), f
     assert (bt.shape, bt.spec, bt.group) == (tt.shape, tt.spec, tt.group)

@@ -20,7 +20,8 @@ from repro.models import attention as jA
 from repro.serve import paged_kv as jpk
 from repro_torch.configs import get_config
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_decode import (flash_decode_plain,
+from repro_torch.kernels.flash_decode import (_check_kernel_shape,
+                                              flash_decode_plain,
                                               paged_flash_decode,
                                               paged_flash_decode_plain,
                                               paged_flash_prefill,
@@ -189,6 +190,23 @@ def test_paged_wrappers_reject_bad_shapes():
         paged_flash_decode(q, *tpool, tpt[:2], pos)
     with pytest.raises(ValueError):
         paged_flash_prefill(q[:, None], *tpool, tpt, pos[:2])
+
+
+@pytest.mark.parametrize("dh,page,ok", [
+    (32, 8, True), (64, 128, True), (128, 40, True), (64, 24, True),
+    (48, 16, False), (64, 12, False), (64, 136, False), (64, 0, False)])
+def test_kernel_shape_guard(dh, page, ok):
+    """What the CUDA kernels take (Dh in {32, 64, 128}, pages of 8..128
+    slots in steps of 8, 16-byte aligned pool operands) is checked in
+    Python before a launch."""
+    codes = torch.zeros(4 * 16 + 1, dtype=torch.uint8)
+    if ok:
+        _check_kernel_shape("decode", dh, page, codes[:64], codes[16:])
+        with pytest.raises(ValueError, match="16-byte"):
+            _check_kernel_shape("decode", dh, page, codes[1:])
+    else:
+        with pytest.raises(ValueError, match="page"):
+            _check_kernel_shape("decode", dh, page, codes)
 
 
 # ---------------------------------------------------------------------------

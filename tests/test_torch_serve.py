@@ -22,7 +22,8 @@ from repro.core.policy import PrecisionPolicy as JaxPolicy  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402
 from repro.models import zoo as jzoo  # noqa: E402
 from repro.serve.engine import ServeEngine as JaxEngine  # noqa: E402
-from repro_torch.bridge import params_from_numpy  # noqa: E402
+from repro_torch.bridge import (params_from_numpy,  # noqa: E402
+                                 tensor_from_numpy)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.policy import PrecisionPolicy  # noqa: E402
 from repro_torch.models import zoo  # noqa: E402
@@ -39,6 +40,11 @@ LOGIT_TOL = 1e-5
 @pytest.fixture(scope="module")
 def jax_params():
     return jT.lm_init(jax.random.PRNGKey(0), JCFG)
+
+
+def _tparams(tree):
+    """A JAX tree bridged to the port's tensors on the CPU."""
+    return params_from_numpy(jax_to_numpy(tree), device="cpu")
 
 
 def _f32(cfg):
@@ -58,7 +64,7 @@ def _policies(name):
 def test_prefill_logits_f32(jax_params, policy):
     jp, tp = _policies(policy)
     jparams = jzoo.pack_params(jax_params, jp) if jp else jax_params
-    tparams = params_from_numpy(jax_to_numpy(jparams))
+    tparams = _tparams(jparams)
     want, jcache, _ = jzoo.apply_model(jparams, {"tokens": jnp.asarray(PROMPT)},
                                        _f32(JCFG), mode="prefill")
     got, tcache = zoo.apply_model(
@@ -67,7 +73,7 @@ def test_prefill_logits_f32(jax_params, policy):
                                rtol=LOGIT_TOL, atol=LOGIT_TOL)
     # posit8 cache codes: exactly equal on identical k/v ...
     jq = jzoo.quantize_cache(jcache)
-    tq = zoo.quantize_cache(params_from_numpy(jax_to_numpy(jcache)))
+    tq = zoo.quantize_cache(_tparams(jcache))
     for key in ("k_codes", "v_codes"):
         np.testing.assert_array_equal(tq[key].numpy(), np.asarray(jq[key]))
     for key in ("k_scale", "v_scale"):
@@ -88,12 +94,12 @@ def test_decode_step_logits_f32(jax_params):
     """One decode step on identical posit8 caches (packed mixed weights)."""
     jp, tp = _policies("mixed")
     jparams = jzoo.pack_params(jax_params, jp)
-    tparams = params_from_numpy(jax_to_numpy(jparams))
+    tparams = _tparams(jparams)
     _, jcache, _ = jzoo.apply_model(jparams, {"tokens": jnp.asarray(PROMPT)},
                                     _f32(JCFG), mode="prefill")
     jcache = JaxEngine(_f32(JCFG), jparams, max_len=32)._pad_cache(
         jzoo.quantize_cache(jcache), 2)
-    tcache = params_from_numpy(jax_to_numpy(jcache))
+    tcache = _tparams(jcache)
     nxt = np.array([[3], [77]], dtype=np.int32)
     want, jnew = jzoo.decode_model(jparams, jnp.asarray(nxt), _f32(JCFG),
                                    jcache, jnp.int32(12))
@@ -120,7 +126,7 @@ def test_generate_tokens_equal_jax(jax_params, policy, lengths, impl):
     jcfg = dataclasses.replace(JCFG, decode_impl=impl)
     jeng = JaxEngine(jcfg, jax_params, max_len=32, quantized_kv=True,
                      policy=jp)
-    teng = ServeEngine(TCFG, params_from_numpy(jax_to_numpy(jax_params)),
+    teng = ServeEngine(TCFG, _tparams(jax_params),
                        max_len=32, quantized_kv=True, policy=tp, device="cpu")
     want = jeng.generate(jnp.asarray(PROMPT), 10,
                          lengths=None if lengths is None
@@ -132,7 +138,7 @@ def test_generate_tokens_equal_jax(jax_params, policy, lengths, impl):
 def test_generate_bf16_kv_tokens_equal_jax(jax_params):
     jeng = JaxEngine(JCFG, jax_params, max_len=32,
                      policy=JaxPolicy.paper_mixed())
-    teng = ServeEngine(TCFG, params_from_numpy(jax_to_numpy(jax_params)),
+    teng = ServeEngine(TCFG, _tparams(jax_params),
                        max_len=32, policy=PrecisionPolicy.paper_mixed(),
                        device="cpu")
     np.testing.assert_array_equal(teng.generate(PROMPT, 8),
@@ -155,7 +161,7 @@ def test_init_cache_layout_matches_jax(quantized, group):
 
 
 def test_sampling_is_seeded(jax_params):
-    teng = ServeEngine(TCFG, params_from_numpy(jax_to_numpy(jax_params)),
+    teng = ServeEngine(TCFG, _tparams(jax_params),
                        max_len=32, quantized_kv=True,
                        policy=PrecisionPolicy.paper_mixed(), device="cpu")
     runs = [teng.generate(PROMPT, 6, temperature=1.0,
@@ -166,7 +172,7 @@ def test_sampling_is_seeded(jax_params):
 
 
 def test_engine_cast_readout_once_and_default_device(jax_params):
-    tparams = params_from_numpy(jax_to_numpy(jax_params))
+    tparams = _tparams(jax_params)
     teng = ServeEngine(TCFG, tparams, max_len=32, device="cpu")
     assert teng.params["embed"]["table"].dtype == torch.bfloat16
     assert tparams["embed"]["table"].dtype == torch.float32
@@ -176,3 +182,16 @@ def test_engine_cast_readout_once_and_default_device(jax_params):
         ServeEngine(TCFG, tparams, max_len=32)
     with pytest.raises(RuntimeError):
         zoo.init_model(TCFG)
+
+
+def test_bridge_defaults_to_the_card():
+    tree = {"w": np.ones((2, 3), np.float32),
+            "n": np.arange(3, dtype=np.uint32)}
+    assert params_from_numpy(tree, device="cpu")["w"].device.type == "cpu"
+    if torch.cuda.is_available():
+        assert params_from_numpy(tree)["w"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy(tree)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tensor_from_numpy(tree["n"])
