@@ -10,15 +10,24 @@ Phases, each of which fails the run (non-zero exit) on any miss:
   2. kernels vs their plain PyTorch versions on the card, at the shapes
      of the main path: ``rmmec_matmul`` (FP4, posit8, posit16; per-channel
      and K-group 32 scales; M in {8, 1024}; both packed layouts; a weight
-     with an all-zero mask block) and ``flash_decode`` (qwen2-0.5b's
-     B=8, Kh=2, G=7, Dh=64 over T=256 slots, with pad and softcap);
+     with an all-zero mask block; then posit8 and FP4 x {per channel,
+     group 32, group 64} x {stacked, 2-D} at K=1100, N=300 for M in {1,
+     3, 8, 16, 17, 64, 256, 1024}, gated chunks among them), bitwise row
+     invariance on all three routes (rows of an M=1024 call equal the
+     same rows at M=256, 8 and 1, and a row equals itself among other
+     rows), times of one layer's seven projections at M=8, 256 and 1024;
+     and ``flash_decode`` (qwen2-0.5b's B=8, Kh=2, G=7, Dh=64 over T=256
+     slots, with pad and softcap; and over caches of 100, 66 and 67 slots,
+     whose KV blocks are 4, 2 and 1 slots);
   3. the main path at full width: ``ServeEngine`` serving qwen2-0.5b
      (24 layers, d=896, vocab 151936) with the paper's mixed posit8/FP4
      policy and a posit8 KV cache, random weights from a seed, batch 8,
      prompt 128, 32 greedy steps; the launch counters must show every
      projection and every decode attention went through the kernels;
   4. the reduced config (float32) served on the card and on the CPU
-     (plain versions) from the same weights: logits and tokens must agree.
+     (plain versions) from the same weights: logits and tokens must agree,
+     also at max_len 100 and 66 (KV blocks of 4 and 2 slots), with the
+     decode kernel's launches counted.
 
 and, for continuous batching over the paged posit8 KV pool:
 
@@ -30,8 +39,9 @@ and, for continuous batching over the paged posit8 KV pool:
       column), bitwise against ``flash_decode`` over a shuffled scatter
       of a contiguous cache, ``flash_decode`` with a left pad bitwise
       against the decode entry point over the same cache as pages, and
-      C=1 prefill bitwise against paged decode; pages of 24 and 16 slots
-      (the kernels' generic-width path) against the plain versions too;
+      C=1 prefill bitwise against paged decode; pages of 24, 16, 4, 2 and
+      1 slots (the kernels' generic-width path) against the plain versions
+      too, the last three also bitwise against ``flash_decode``;
   3b. ``ContinuousEngine`` serving full-width qwen2-0.5b (paper_mixed
       weights, 20 pages of 128 slots, prefix cache, 256-token chunks) a
       16-request mix with a shared preamble and staggered arrivals, at
@@ -160,6 +170,30 @@ def phase_build() -> None:
             f"{len(spills)}")
         for ln in spills[:4]:
             log(f"[build]   {ln}")
+        if name == "rmmec_matmul":   # every instantiation's registers
+            for fn, used in _ptxas_kernels(rep):
+                log(f"[build]   {used} <- {fn[:110]}")
+
+
+def _ptxas_kernels(report: str):
+    """(kernel name, its 'Used N registers ...' line) from an nvcc
+    -Xptxas -v report, names demangled where c++filt is on the path."""
+    found, name = [], None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "Used" in ln and name is not None:
+            found.append((name, ln.split("ptxas info    :")[-1].strip()))
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in found),
+                               capture_output=True, text=True, timeout=30,
+                               check=True).stdout.splitlines()
+        if len(names) == len(found):
+            found = [(n, u) for n, (_, u) in zip(names, found)]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return found
 
 
 # ---------------------------------------------------------------------------
@@ -171,13 +205,16 @@ FLASH_ATOL = 1e-4   # outputs are O(1) averages of V; exp/tanh and sum order
 
 
 def _rmmec_case(spec, group, m, k, n, stacked, zero_block, gen, fails):
-    from repro_torch.kernels.ops import pack_tensor, to_dense
-    from repro_torch.kernels.rmmec_matmul import rmmec_matmul, rmmec_matmul_plain
+    from repro_torch.kernels.ops import pack_tensor
+    from repro_torch.kernels.rmmec_matmul import (default_blocks, launch_plan,
+                                                  rmmec_matmul,
+                                                  rmmec_matmul_plain)
     w = torch.randn((2, k, n) if stacked else (k, n), generator=gen,
                     device="cuda") * 0.05
     if zero_block:
-        # 2-D layout: the first K block of rows; stacked: the whole slice
-        w[..., : (512 if not stacked else k), :] = 0.0
+        # 2-D layout: the first K block of rows (a gated mask block, so
+        # gated chunks); stacked: the whole slice (its one gate)
+        w[..., : (default_blocks(spec)[1] if not stacked else k), :] = 0.0
     t = pack_tensor(spec, w, group_size=group)
     if stacked:
         t = t[1]
@@ -191,9 +228,10 @@ def _rmmec_case(spec, group, m, k, n, stacked, zero_block, gen, fails):
     err = (got - want).abs().max().item()
     ref = want.abs().max().item()
     ok = err <= RMMEC_RTOL * ref and torch.isfinite(got).all().item()
+    route = launch_plan(m, k, n, x.dtype, spec.bits).route
     tag = (f"{spec.name:9s} g={str(group):4s} M={m:5d} K={k:5d} N={n:5d} "
            f"{'stacked' if stacked else '2-D':7s} mask={tuple(t.mask.shape)}"
-           f" gated={int((t.mask == 0).sum())}")
+           f" gated={int((t.mask == 0).sum())} route={route}")
     log(f"[rmmec] {tag} max_abs_err={err:.3e} (tol {RMMEC_RTOL * ref:.3e}) "
         f"{'ok' if ok else 'MISS'}")
     if not ok:
@@ -216,6 +254,50 @@ def _rmmec_times(x, t):
     return ms, plain, lib, nbytes, 2.0 * m * k * n
 
 
+def _rmmec_rows(spec, group, k, n, stacked, zero_block, xdtype, gen, fails):
+    """Bitwise row invariance: rows of an M=1024 call equal the same rows
+    of M=256, 8 and 1 calls (other routes, other tiles), and rows equal
+    themselves among other rows of random content."""
+    from repro_torch.kernels.ops import pack_tensor
+    from repro_torch.kernels.rmmec_matmul import (default_blocks, launch_plan,
+                                                  rmmec_matmul)
+    w = torch.randn((2, k, n) if stacked else (k, n), generator=gen,
+                    device="cuda") * 0.05
+    if zero_block:
+        w[..., : default_blocks(spec)[1], :] = 0.0
+    t = pack_tensor(spec, w, group_size=group)
+    t = t[1] if stacked else t
+    x = torch.randn((1024, k), generator=gen, device="cuda").to(xdtype)
+
+    def run(xx):
+        return rmmec_matmul(xx.contiguous(), t.words, t.scales, t.mask,
+                            t.spec, n)
+
+    full = run(x)
+    checks = {m: torch.equal(run(x[:m]), full[:m]) for m in (256, 8, 1)}
+    other = torch.randn((1024, k), generator=gen, device="cuda").to(xdtype)
+    for r in (0, 5, 700):       # row r among other rows, at M=1024 and 8
+        mixed = other.clone()
+        mixed[r] = x[r]
+        checks[f"row {r} among others"] = torch.equal(run(mixed)[r], full[r])
+        if r < 8:
+            checks[f"row {r} among others M=8"] = torch.equal(
+                run(mixed[:8])[r], full[r])
+    routes = sorted({launch_plan(m, k, n, xdtype, spec.bits).route
+                     for m in (1024, 256, 8, 1)})
+    # not required: a row moved to another place in its 16-row MMA group
+    moved = torch.equal(run(x[37:38])[0], full[37])
+    ok = all(checks.values())
+    tag = (f"{spec.name:9s} g={str(group):4s} K={k} N={n} "
+           f"{'stacked' if stacked else '2-D'} gated={int((t.mask == 0).sum())}"
+           f" x={str(xdtype).split('.')[-1]} routes={'/'.join(routes)}")
+    log(f"[rmmec] bitwise rows {tag}: "
+        + ", ".join(f"{c}: {'ok' if v else 'MISS'}" for c, v in checks.items())
+        + f" (row 37 alone at M=1, not required: {moved})")
+    if not ok:
+        fails.append(f"rmmec bitwise rows {tag}")
+
+
 def phase_rmmec(summary, fails) -> None:
     from repro_torch.core import formats as fmt
     gen = torch.Generator("cuda").manual_seed(1)
@@ -233,6 +315,34 @@ def phase_rmmec(summary, fails) -> None:
         err, *_ = _rmmec_case(fmt.POSIT8, 32, 8, 896, 896, stacked, True,
                               gen, fails)
         max_err = max(max_err, err)
+    # every M of the tensor routes (split-K up to 16, then tiles) at a K
+    # that is not a multiple of the chunk (1100) and an N that is not one
+    # of the tile (300; stacked: words not a multiple of 4); the 2-D
+    # layout's first mask block gated, so gated chunks fold on both routes
+    for spec in (fmt.POSIT8, fmt.FP4):
+        for group in (None, 32, 64):
+            for stacked in (True, False):
+                for m in (1, 3, 8, 16, 17, 64, 256, 1024):
+                    err, *_ = _rmmec_case(spec, group, m, 1100, 300, stacked,
+                                          not stacked, gen, fails)
+                    max_err = max(max_err, err)
+        err, *_ = _rmmec_case(spec, None, 8, 1100, 300, True, True, gen,
+                              fails)                      # a gated slice
+        max_err = max(max_err, err)
+    for spec, group, k, n, stacked, zero in (
+            (fmt.POSIT8, None, 896, 896, True, False),
+            (fmt.FP4, None, 896, 4864, True, False),
+            (fmt.FP4, None, 4864, 896, True, False),
+            (fmt.POSIT8, 32, 1100, 300, True, False),
+            (fmt.FP4, 64, 1100, 300, False, True),
+            (fmt.POSIT8, None, 1100, 300, False, True)):
+        _rmmec_rows(spec, group, k, n, stacked, zero, torch.bfloat16, gen,
+                    fails)
+    # the SIMT route: f32 x, and posit16 with bf16 x
+    _rmmec_rows(fmt.POSIT8, None, 896, 896, True, False, torch.float32, gen,
+                fails)
+    _rmmec_rows(fmt.POSIT16, 32, 896, 896, True, False, torch.bfloat16, gen,
+                fails)
 
     # times at the main path's shapes: one layer's seven projections under
     # paper_mixed (posit8 attention, FP4 FFN, per-channel scales), stacked
@@ -240,7 +350,8 @@ def phase_rmmec(summary, fails) -> None:
     proj = [(fmt.POSIT8, 896, 896), (fmt.POSIT8, 896, 128),
             (fmt.POSIT8, 896, 128), (fmt.POSIT8, 896, 896),
             (fmt.FP4, 896, 4864), (fmt.FP4, 896, 4864), (fmt.FP4, 4864, 896)]
-    for m, label in ((8, "decode"), (8 * 128, "prefill")):
+    s = summary["rmmec_matmul"] = dict(max_abs_err=max_err)
+    for m, label in ((8, "decode"), (256, "chunk"), (8 * 128, "prefill")):
         tot = [0.0] * 5
         for spec, k, n in proj:
             _, _, x, t, _ = _rmmec_case(spec, None, m, k, n, True, False, gen,
@@ -254,15 +365,21 @@ def phase_rmmec(summary, fails) -> None:
         log(f"[rmmec] one layer's 7 projections, {label} M={m}: kernel "
             f"{tot[0]:.4f} ms, plain {tot[1]:.4f} ms, library {tot[2]:.4f} "
             f"ms, bound {b_ms:.4f} ms ({b_by})")
-        if label == "decode":
-            summary["rmmec_matmul"] = dict(
-                max_abs_err=max_err, ms=tot[0], plain_ms=tot[1],
-                library_ms=tot[2], bound_ms=b_ms, bound_by=b_by)
+        if m == 8:
+            s.update(ms=tot[0], plain_ms=tot[1], library_ms=tot[2],
+                     bound_ms=b_ms, bound_by=b_by)
+        else:
+            s.update({f"ms_m{m}": tot[0], f"plain_ms_m{m}": tot[1],
+                      f"library_ms_m{m}": tot[2], f"bound_ms_m{m}": b_ms,
+                      f"bound_by_m{m}": b_by})
+    s["max_abs_err"] = max_err
 
 
 def phase_flash(summary, fails) -> None:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    from repro_torch.kernels.flash_decode import (default_kv_block,
+                                                  flash_decode,
+                                                  flash_decode_plain)
     from repro_torch.models.attention import dequantize_kv, quantize_kv
     gen = torch.Generator("cuda").manual_seed(2)
     b, kh, g, dh, t = 8, 2, 7, 64, 256
@@ -321,6 +438,34 @@ def phase_flash(summary, fails) -> None:
             summary["flash_decode"] = dict(
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                 bound_by=b_by)
+    # caches whose default KV block is below 8 slots (max_len 100 -> 4,
+    # 66 -> 2, 67 -> 1): scale blocks that are not whole 16-byte copies
+    for t_small in (100, 66, 67):
+        kv = torch.randn((2, b, t_small, kh, dh), generator=gen, device="cuda")
+        for group in (None, 32):
+            kc, ks = quantize_kv(kv[0], group)
+            vc, vs = quantize_kv(kv[1], group)
+            q = torch.randn((b, kh, g, dh), generator=gen, device="cuda")
+            pad = torch.tensor([0, 3, 17, 64, 0, 1, 30, 5], dtype=torch.int32,
+                               device="cuda")
+            for pos in (0, 37, t_small - 1):
+                pd = pad.clamp(max=pos)
+                got = flash_decode(q, kc, ks, vc, vs, pos, pad=pd, softcap=20.0)
+                want = flash_decode_plain(q, kc, ks, vc, vs, pos, pd, 20.0)
+                naive = ref.flash_decode_ref(q, kc, ks, vc, vs, pos, 20.0, pd)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                err_n = (got - naive).abs().max().item()
+                ok = err <= FLASH_ATOL and err_n <= FLASH_ATOL \
+                    and torch.isfinite(got).all().item()
+                max_err = max(max_err, err)
+                tag = (f"T={t_small} blk={default_kv_block(t_small)} "
+                       f"group={group} pos={pos} pad=True softcap=20.0")
+                log(f"[flash] {tag} max_abs_err={err:.3e} vs plain, "
+                    f"{err_n:.3e} vs naive (tol {FLASH_ATOL}) "
+                    f"{'ok' if ok else 'MISS'}")
+                if not ok:
+                    fails.append(f"flash {tag}")
     summary["flash_decode"]["max_abs_err"] = max_err
 
 
@@ -418,14 +563,23 @@ def _profile(fn):
 
 ATTENTION_KERNELS = ("decode_page_kernel", "decode_fold_kernel",
                      "prefill_kernel")
+RMMEC_KERNELS = ("split_k_kernel", "tile_kernel", "simt_kernel")
 
 
 def _top_and_attention(dev, n: int = 8):
-    """The ``n`` kernels with the most device time, then any attention
-    kernel of ``csrc/flash_decode.cu`` not among them."""
+    """The ``n`` kernels with the most device time, then any attention or
+    RMMEC kernel of ``csrc/`` not among them."""
     ranked = sorted(dev.items(), key=lambda kv: -kv[1][0])
-    return ranked[:n] + [kv for kv in ranked[n:]
-                         if any(a in kv[0] for a in ATTENTION_KERNELS)]
+    return ranked[:n] + [kv for kv in ranked[n:] if any(
+        a in kv[0] for a in ATTENTION_KERNELS + RMMEC_KERNELS)]
+
+
+def _rmmec_share(dev, busy: float, per: float) -> str:
+    """RMMEC's device ms (per ``per`` steps) and share of busy time."""
+    ms = sum(v[0] for k, v in dev.items()
+             if any(r in k for r in RMMEC_KERNELS))
+    return (f"rmmec_matmul device {ms / per:.3f} ms of {busy / per:.3f} ms "
+            f"busy ({ms / max(busy, 1e-9):.3f})")
 
 
 def profile_decode(eng, toks, step_ms: float, steps: int = 8) -> None:
@@ -448,6 +602,7 @@ def profile_decode(eng, toks, step_ms: float, steps: int = 8) -> None:
         f"profiled / {step_ms:.2f} ms unprofiled, device busy {busy:.2f} ms, "
         f"busy share {busy / wall:.3f} profiled / {busy / step_ms:.3f} "
         f"unprofiled, kernel launches {sum(v[1] for v in dev.values()):.0f}")
+    log(f"[profile] {_rmmec_share(dev, busy, 1)}")
     for k, (ms, n) in _top_and_attention(dev):
         log(f"[profile]   device {ms:8.3f} ms  {n:6.1f} calls  {k[:90]}")
     host = {k: (v - h0.get(k, 0.0)) / steps for k, v in h1.items()}
@@ -491,6 +646,31 @@ def phase_parity(fails) -> None:
         fails.append(f"parity: logits differ by {err}")
     if not same:
         fails.append("parity: greedy tokens differ between cuda and cpu")
+    # max_len not a multiple of 8: the decode kernel runs KV blocks of 4
+    # (100) and 2 (66) slots
+    from repro_torch.kernels.flash_decode import default_kv_block, flash_decode
+    steps = 16
+    for max_len in (100, 66):
+        engs = {dev: ServeEngine(cfg, params, max_len=max_len,
+                                 quantized_kv=True,
+                                 policy=PrecisionPolicy.paper_mixed(),
+                                 device=dev) for dev in ("cpu", "cuda")}
+        flash_decode.launches = 0
+        outs = {dev: eng.generate(toks, steps, lengths=lengths)
+                for dev, eng in engs.items()}
+        torch.cuda.synchronize()
+        n = flash_decode.launches
+        same = bool(np.array_equal(outs["cpu"], outs["cuda"]))
+        want = cfg.n_layers * steps
+        log(f"[parity] {cfg.name} (float32) max_len={max_len} (KV block "
+            f"{default_kv_block(max_len)}): ragged greedy tokens equal: "
+            f"{same}; flash_decode launches {n}, expected {want}")
+        if not same:
+            fails.append(f"parity: max_len={max_len} greedy tokens differ "
+                         f"between cuda and cpu")
+        if n != want:
+            fails.append(f"parity: max_len={max_len} flash_decode launched "
+                         f"{n} times, expected {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -584,13 +764,7 @@ def phase_paged(summary, fails) -> None:
         contig = (*quantize_kv(kv[0], group), *quantize_kv(kv[1], group))
         perm = torch.tensor(rng.permutation(np.arange(1, n_pages + 1))
                             .reshape(b, npp), dtype=torch.int32, device="cuda")
-        scattered = []
-        for x in contig:
-            buf = torch.zeros((n_pages + 1, page) + x.shape[2:], dtype=x.dtype,
-                              device="cuda")
-            buf[perm.reshape(-1).long()] = x.reshape(b * npp, page,
-                                                     *x.shape[2:])
-            scattered.append(buf)
+        scattered = [_scatter(x, perm, n_pages + 1, page) for x in contig]
         for p_ in (0, 127, 128, 700, 1023):
             pos = torch.full((b,), p_, dtype=torch.int32, device="cuda")
             _bitwise(f"paged == contiguous group={group} pos={p_}",
@@ -612,9 +786,11 @@ def phase_paged(summary, fails) -> None:
                                   20.0), fails)
 
     # pages other than 128 slots take the kernels' generic-width path: an
-    # odd count of 8-slot tiles (24) and a short page (16) with group 8
-    for gpage, group in ((24, None), (16, 8)):
-        gnp = 6
+    # odd count of 8-slot tiles (24), a short page (16) with group 8, and
+    # the pages below 8 slots of caches whose max_len is not a multiple of
+    # 8 (4, 2, 1: part of an 8-slot tile, scale blocks of 16, 8 or 4 bytes)
+    for gpage, group in ((24, None), (16, 8), (4, None), (2, 8), (1, 32)):
+        gnp = max(6, 48 // gpage)
         gpool = _paged_pool(gen, 3 * gnp + 1, gpage, kh, dh, group)
         gpt = torch.tensor(rng.permutation(np.arange(1, 3 * gnp + 1))
                            .reshape(3, gnp), dtype=torch.int32, device="cuda")
@@ -629,15 +805,28 @@ def phase_paged(summary, fails) -> None:
         _bitwise(f"C=1 prefill == decode page={gpage} group={group}",
                  paged_flash_prefill(q3[:, None], *gpool, gpt, gpos, 20.0)[:, 0],
                  got, fails)
-        q5 = torch.randn((3, 2 * gpage, kh, g, dh), generator=gen,
-                         device="cuda")
+        gc = max(2 * gpage, 20)
+        q5 = torch.randn((3, gc, kh, g, dh), generator=gen, device="cuda")
         gst = torch.tensor([0, gpage, 3 * gpage], dtype=torch.int32,
                            device="cuda")
         err_p = max(err_p, _check(
-            f"prefill page={gpage} group={group} C={2 * gpage} "
+            f"prefill page={gpage} group={group} C={gc} "
             f"start={gst.tolist()}", paged_flash_prefill(q5, *gpool, gpt, gst),
             paged_flash_prefill_plain(q5, *gpool, gpt, gst),
             ref.paged_prefill_ref(q5, *gpool, gpt, gst), fails))
+        if gpage < 8:
+            # paged == contiguous with blk == page, over shuffled pages
+            kv = torch.randn((2, 3, gnp * gpage, kh, dh), generator=gen,
+                             device="cuda")
+            contig = (*quantize_kv(kv[0], group), *quantize_kv(kv[1], group))
+            scattered = [_scatter(x, gpt, 3 * gnp + 1, gpage) for x in contig]
+            for p_ in (0, gpage, gnp * gpage - 1):
+                pos = torch.full((3,), p_, dtype=torch.int32, device="cuda")
+                _bitwise(f"paged == contiguous page={gpage} group={group} "
+                         f"pos={p_}",
+                         paged_flash_decode(q3, *scattered, gpt, pos, 20.0),
+                         flash_decode(q3, *contig, p_, softcap=20.0, blk=gpage),
+                         fails)
 
     # times at the continuous path's shapes: a decode dispatch row set of
     # eight requests mid-generation, and one 256-token chunk late in a
@@ -694,6 +883,15 @@ def phase_paged(summary, fails) -> None:
     summary["paged_flash_prefill"] = dict(
         max_abs_err=err_p, ms=ms, plain_ms=plain, library_ms=lib,
         bound_ms=b_ms, bound_by=b_by)
+
+
+def _scatter(x, perm, n_pages, page):
+    """A contiguous cache tensor (B, T, ...) cut into pages of ``page``
+    slots and placed in a pool of ``n_pages`` pages at ``perm`` (B, T/page)."""
+    buf = torch.zeros((n_pages, page) + x.shape[2:], dtype=x.dtype,
+                      device="cuda")
+    buf[perm.reshape(-1).long()] = x.reshape(-1, page, *x.shape[2:])
+    return buf
 
 
 def _gathered_bf16(pool, pt, horizon, width=None):
@@ -892,6 +1090,7 @@ def profile_continuous(cfg, params, kw, reqs, warm_steps: int = 4,
     log(f"[cprofile] {steps} steps of K=4 (profiled): wall {wall / steps:.2f} "
         f"ms/step, device busy {busy / steps:.2f} ms/step, busy share "
         f"{busy / wall:.3f}, kernel launches {n / steps:.0f}/step")
+    log(f"[cprofile] {_rmmec_share(dev, busy, steps)} per step")
     for k, (ms, cnt) in _top_and_attention(dev):
         log(f"[cprofile]   device {ms / steps:8.3f} ms/step {cnt / steps:7.1f} "
             f"calls  {k[:90]}")
@@ -1192,6 +1391,9 @@ def main() -> int:
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"]})
+        if name == "rmmec_matmul":   # the prefill shapes beside decode's
+            kernels[-1].update({key: s[key] for key in (
+                "ms_m256", "ms_m1024", "library_ms_m1024", "bound_ms_m1024")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,11 @@ VARIANTS = {
 def _sources():
     with open(os.path.join(_build.CSRC_DIR, "flash_decode.cu")) as f:
         src = f.read()
+    # the MMA wrapper lives in the shared header: inline it, so a variant
+    # can change it for this file alone
+    with open(os.path.join(_build.CSRC_DIR, "mma.cuh")) as f:
+        header = f.read().replace("#pragma once\n", "")
+    src = src.replace('#include "mma.cuh"\n', header)
     out = {}
     for name, patches in VARIANTS.items():
         text = src

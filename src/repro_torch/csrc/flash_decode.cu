@@ -75,7 +75,7 @@
 // term that is zero in all its rows (q from bf16 activations: mid = lo =
 // 0), which changes no bit.  No TF32, no bf16 rounding of q or p.
 //
-// Limits: Dh in {32, 64, 128}; page (blk) a multiple of 8, at most 128.
+// Limits: Dh in {32, 64, 128}; a page (blk) of 1 .. 128 slots.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,10 +83,11 @@
 #include <stdint.h>
 
 #include "formats.cuh"
+#include "mma.cuh"
 
 namespace {
 
-using xrnpe::Posit;
+using namespace xrnpe;
 using bf16 = __nv_bfloat16;
 
 constexpr int TEAM = 128;              // threads of a team: 4 warps, 16 rows
@@ -183,53 +184,9 @@ __device__ __forceinline__ void init_block(const Smem& s, int page, int Dh) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// PTX wrappers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // The four warps of a team meet (named barrier `bar`, 1 + the team).
 __device__ __forceinline__ void team_sync(int bar) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "n"(TEAM) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-// c += a (16x16 bf16, row) . b (16x8 bf16, col), f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // x == hi + mid + lo exactly, each a bf16 (x a normal f32).
@@ -238,11 +195,6 @@ __device__ __forceinline__ void split3(float x, bf16& hi, bf16& mid, bf16& lo) {
   const float r = x - __bfloat162float(hi);
   mid = __float2bfloat16_rn(r);
   lo = __float2bfloat16_rn(r - __bfloat162float(mid));
-}
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo_half, bf16 hi_half) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo_half)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi_half)) << 16);
 }
 
 // Stores the three bf16 terms of (x, y) at `dst` in each of the three
@@ -264,7 +216,11 @@ __device__ __forceinline__ void store_terms(bf16* dst, int plane, float x, float
 // ---------------------------------------------------------------------------
 
 // Starts the copy of pool page `pid`'s codes for kv head h and its scale
-// blocks into `st` (cp.async, 16 bytes a thread per step) and commits it.
+// blocks into `st` and commits it: cp.async of 16 bytes a thread per step
+// where the source allows (a pool whose codes or scale blocks do not start
+// on 16-byte boundaries, as small pages' scale blocks of page*Kh*Gs*2
+// bytes may not, takes plain loads instead, which the same barrier
+// publishes).
 template <int Dh, int NT>
 __device__ __forceinline__ void stage_page(uint8_t* st, const uint8_t* __restrict__ kc,
                                            const bf16* __restrict__ ks,
@@ -273,17 +229,36 @@ __device__ __forceinline__ void stage_page(uint8_t* st, const uint8_t* __restric
                                            int page, int Kh, int h, int Gs) {
   constexpr int cps = Dh / 16;
   const int nc = page * cps;
+  const bool codes16 = ((reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc)) & 15) == 0;
   for (int i = threadIdx.x; i < 2 * nc; i += NT) {
     const int which = i >= nc, c = i - which * nc, j = c / cps, part = c % cps;
     const uint8_t* src = (which ? vc : kc) + ((pid * page + j) * Kh + h) * Dh + part * 16;
-    cp_async16(st + which * page * Dh + c * 16, src);
+    uint8_t* dst = st + which * page * Dh + c * 16;
+    if (codes16) {
+      cp_async16(dst, src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) dst[e] = src[e];
+    }
   }
-  const int sb = scale_block_bytes(page, Kh, Gs), ns = sb / 16;
+  const int sb = scale_block_bytes(page, Kh, Gs);
   uint8_t* sdst = st + 2 * page * Dh;
-  for (int i = threadIdx.x; i < 2 * ns; i += NT) {
-    const int which = i >= ns, c = i - which * ns;
-    const uint8_t* src = reinterpret_cast<const uint8_t*>(which ? vs : ks) + pid * sb + c * 16;
-    cp_async16(sdst + which * align16(sb) + c * 16, src);
+  const bool scales16 =
+      sb % 16 == 0 &&
+      ((reinterpret_cast<uintptr_t>(ks) | reinterpret_cast<uintptr_t>(vs)) & 15) == 0;
+  if (scales16) {
+    const int ns = sb / 16;
+    for (int i = threadIdx.x; i < 2 * ns; i += NT) {
+      const int which = i >= ns, c = i - which * ns;
+      const uint8_t* src = reinterpret_cast<const uint8_t*>(which ? vs : ks) + pid * sb + c * 16;
+      cp_async16(sdst + which * align16(sb) + c * 16, src);
+    }
+  } else {
+    const int ns = sb / 2;  // one bf16 a step
+    for (int i = threadIdx.x; i < 2 * ns; i += NT) {
+      const int which = i >= ns, c = i - which * ns;
+      reinterpret_cast<bf16*>(sdst + which * align16(sb))[c] = (which ? vs : ks)[pid * ns + c];
+    }
   }
   cp_async_commit();
 }
@@ -372,8 +347,10 @@ __device__ __forceinline__ int split_q(const Team& tm, int bar, const float* __r
 // the page partial and the fold: the single copy of the math
 // ---------------------------------------------------------------------------
 
-// A team's page partial over `width` slots (a multiple of 8, <= 128) at
-// logical slots kpos0 .. kpos0+width-1, for the 16 rows split in tm.qs.
+// A team's page partial over `width` slots (1 .. 128) at logical slots
+// kpos0 .. kpos0+width-1, for the 16 rows split in tm.qs.  S is computed in
+// tiles of 8 slots; a last tile that reaches past the page masks its extra
+// slots like dead ones (their K and V rows are the zeros of init_block).
 // Lane L of team warp w holds rows g = L/4 (index 0) and g + 8 (index 1):
 // m[i] and l[i] for its rows (the same in every warp of the team) and, in
 // the MMA's C layout, acc[n][0..1] (row g) and acc[n][2..3] (row g+8) at
@@ -389,7 +366,7 @@ __device__ __forceinline__ void page_partial(const Smem& s, const Team& tm, int 
   constexpr int LD = DH + 8, NKS = DH / 16, NW = DH / 32;
   const int lane = threadIdx.x % 32, t = lane % 4, g = lane / 4;
   const int w = (threadIdx.x / 32) % TEAM_WARPS;
-  const int ntile = FULL ? MAXP / 8 : width / 8, n0 = 4 * w;  // this warp's S: n0 .. n0+3
+  const int ntile = FULL ? MAXP / 8 : (width + 7) / 8, n0 = 4 * w;  // this warp's S: n0 .. n0+3
   const uint32_t qb = smem_addr(tm.qs), kb = smem_addr(s.kp), vb = smem_addr(s.vp),
                  pb = smem_addr(tm.ps);
   float* red_m = tm.red;
@@ -429,8 +406,8 @@ __device__ __forceinline__ void page_partial(const Smem& s, const Team& tm, int 
       for (int e = 0; e < 4; ++e) {
         float v = sc[j][e] * scale;
         if (softcap > 0.0f) v = tanhf(v / softcap) * softcap;
-        const int kpos = kpos0 + (n0 + j) * 8 + 2 * t + (e & 1);
-        if (kpos > hz[e / 2] || kpos < pad_lo) v = NEG;
+        const int slot = (n0 + j) * 8 + 2 * t + (e & 1), kpos = kpos0 + slot;
+        if (kpos > hz[e / 2] || kpos < pad_lo || (!FULL && slot >= width)) v = NEG;
         sc[j][e] = v;
         mw[e / 2] = fmaxf(mw[e / 2], v);
       }
@@ -727,16 +704,20 @@ prefill_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kc,
 }
 
 // Allows `smem` bytes of dynamic shared memory for `kernel` when above the
-// default 48 KB; returns the CUDA error code.
-template <typename K>
-int allow_smem(K kernel, int smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+// default 48 KB and above what an earlier call allowed (the attribute call
+// costs the host more than a small launch); returns the CUDA error code.
+template <auto Kernel>
+int allow_smem(int smem) {
+  static int allowed = 48 * 1024;  // one per kernel
+  if (smem <= allowed) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) allowed = smem;
+  return static_cast<int>(err);
 }
 
 bool supported(int Dh, int page) {
-  return (Dh == 32 || Dh == 64 || Dh == 128) && page % 8 == 0 && page > 0 && page <= MAXP;
+  return (Dh == 32 || Dh == 64 || Dh == 128) && page > 0 && page <= MAXP;
 }
 
 template <int DH, bool FULL>
@@ -745,7 +726,7 @@ int launch_decode(const void* q, const void* kc, const void* ks, const void* vc,
                   const void* pad, void* scratch, void* out, int B, int NP, int page, int Kh,
                   int G, int Gs, int pos, float softcap, float scale, cudaStream_t stream) {
   const int smem = smem_bytes(page, Kh, Gs, DH, 1, 1);
-  if (const int err = allow_smem(decode_page_kernel<DH, FULL>, smem)) return err;
+  if (const int err = allow_smem<decode_page_kernel<DH, FULL>>(smem)) return err;
   float* acc = static_cast<float*>(scratch);
   const Partials part{acc, acc + (size_t)B * Kh * NP * G * DH};
   decode_page_kernel<DH, FULL><<<dim3(NP, Kh, B), TEAM, smem, stream>>>(
@@ -769,7 +750,7 @@ int launch_prefill(const void* q, const void* kc, const void* ks, const void* vc
                    float scale, cudaStream_t stream) {
   using P = Prefill<DH>;
   const int smem = smem_bytes(page, Kh, Gs, DH, 2, P::TEAMS);
-  if (const int err = allow_smem(prefill_kernel<DH, FULL>, smem)) return err;
+  if (const int err = allow_smem<prefill_kernel<DH, FULL>>(smem)) return err;
   const dim3 grid((C * G + P::TILE - 1) / P::TILE, Kh, B);
   prefill_kernel<DH, FULL><<<grid, P::THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const uint8_t*>(kc),

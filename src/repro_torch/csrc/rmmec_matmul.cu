@@ -1,74 +1,116 @@
 // RMMEC packed mixed-precision matrix product for Hopper (sm_90a).
 //
-// Replaces: src/repro/kernels/rmmec_matmul.py, rmmec_matmul_pallas (the
-// TPU kernel run for every packed projection of the serving plane).
+// Replaces: src/repro/kernels/rmmec_matmul.py:127, rmmec_matmul_pallas
+// (pallas_call at :154), the TPU kernel run for every packed projection of
+// the serving plane.
 //
 // Computes out (M, N) f32 = x (M, K) @ W, where W is stored as packed
 // low-bit codes: int32 words (Kp, Np / per) holding per = 32 / bits
 // codes each, little-endian within the word, with dequant scales
 // (G, Np) f32 and a block mask (mask_rows, mask_cols) int32.  G == 1 is
 // per-channel (applied once to the output); G > 1 gives one scale per
-// K-group of `group` rows (applied to the decoded weight inside the K
-// loop).  Kp >= K and Np >= N are whatever the packer padded to: the
-// stacked-layer layout pads K only to the group and N only to the word,
-// the 2-D layout pads both to kernel blocks; the kernel reads K rows and
-// guards both edges itself.
+// K-group of `group` rows (applied to the decoded weight inside K).  Kp >= K
+// and Np >= N are whatever the packer padded to: the stacked-layer layout
+// pads K only to the group and N only to the word, the 2-D layout pads both
+// to kernel blocks; the kernels read K rows and guard every edge themselves.
 //
-// What bounds it on this card: at decode (M = batch, a few rows) the
-// product is bound by the bytes of the packed words (0.5 or 1 byte per
-// weight), far below the point where the FMA rate matters; at prefill
-// (M = batch * prompt) it is bound by operations.  Design: one block per
-// (BM x 64) output tile with a loop over K in steps of 32 inside the
-// block (the TPU's sequential K grid axis becomes that loop; nothing is
-// carried across blocks).  Each step decodes a 32 x 64 weight tile in
-// registers with the format's branch-free decoder, templated on the
-// format so no table is read, stores it to shared memory as f32 and
-// runs a plain FMA tile.  Decode and accumulation stay in f32: posit16
-// carries 12 fraction bits, which bf16 cannot hold, and posit8 is not
-// exact in e4m3, so no tensor-core MMA is used yet.  A K step whose
-// weight tile lies wholly inside gated-off mask blocks is skipped.
-// Small M takes BM = 8 rows per block; wgmma and split-K are later work.
+// What bounds it on this card.  At decode (M = 8, a batch of rows) bytes:
+// the packed words, 0.5 or 1 byte a weight, ~8.4 MB for qwen2-0.5b's seven
+// projections of a layer, ~2.5 us at 3.35 TB/s; with one block per 64 output
+// columns (2 to 76 blocks) the card is mostly idle and each block waits on
+// one long chain of loads, so the design splits K across blocks (split-K,
+// below) and puts every first load of a block in flight at once.  At
+// prefill (M = 1024) operations: 2*M*K*N, ~31 us for a layer on the bf16
+// tensor cores against ~0.46 ms of f32 FMA, so the design decodes codes of
+// <= 8 bits to bf16 and multiplies on the tensor cores, decoding each weight
+// tile once per block and chunk for 64 or 128 rows of x.
+//
+// Routes (chosen by the wrapper, kernels/rmmec_matmul.py, launch_plan):
+//   - bf16 x with a format of <= 8 bits (the main path): the tensor-core
+//     design below, split-K for M <= 16 and tiles for larger M;
+//   - f32 x, or posit16 with any x: simt_kernel, a sequential fmaf over K
+//     per output element in f32 (posit16 carries 12 fraction bits, which
+//     bf16 cannot hold).
+//
+// The tensor-core design: one K-chunk partial and one ordered fold.
+//   - K is cut into chunks of KC = 128 rows, boundaries from K alone.  A
+//     chunk partial is a chain of mma.sync m16n8k16 (bf16 -> f32) over the
+//     chunk's k16 steps in order, from zero.  A: x's rows as bf16 (zero past
+//     M and past K).  B: the weight tile decoded exactly to bf16 (every code
+//     of a format of <= 8 bits is a bf16 value; a 256-entry table per block,
+//     made once per format by the wrapper), times the group scale where
+//     there is one (a power of two from the packer, so still exact), once
+//     per block and chunk into shared memory, read with ldmatrix.  Products
+//     of bf16 values are exact in f32, so only the order of the sum differs
+//     from the f32 plain version.
+//   - Fold: the partials of an output element are added in chunk order with
+//     __fadd_rn, starting from chunk 0's; then the per-channel scale with
+//     __fmul_rn.  A chunk whose mask blocks are all 0 does no MMA and folds
+//     as an exact zero partial on both routes.
+//   - Split-K (M <= 16, decode): one block per (64-column N-tile, chunk):
+//     98 blocks for qwen2's q and o, 532 for gate, up and down.  Each block
+//     streams its packed words with 16-byte loads, decodes, runs its partial
+//     and writes it to scratch; the last block to arrive for an N-tile (a
+//     per-tile acq_rel counter, reset by that block) folds the tile's
+//     partials and writes out.  One launch a call.
+//   - Tiles (M > 16, prefill): one block per (BM x BN) output tile walks
+//     the chunks in order, each into its own accumulator folded into the
+//     running total at the chunk's end; later chunks' words and x tiles
+//     arrive by cp.async while the current one is multiplied (a ring of
+//     three slots, two chunks ahead) and chunk c+1's weights are decoded
+//     between chunk c's k16 steps.  64 x 64 tiles of 8 warps, or 128 x 128
+//     where those fill half the card.
+//   - Hence, bitwise: a row's output is the same whatever M is, whatever
+//     the other rows hold and whichever route runs it (a row keeps its place
+//     in its 16-row MMA group, row r at r % 16).  simt_kernel has the same
+//     property by its sequential K loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "formats.cuh"
+#include "mma.cuh"
 
 namespace {
 
 using namespace xrnpe;
+using bf16 = __nv_bfloat16;
 
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int NTHREADS = 256;
+// ===========================================================================
+// SIMT route (f32 x; posit16)
+// ===========================================================================
+
+constexpr int SIMT_BN = 64;
+constexpr int SIMT_BK = 32;
+constexpr int SIMT_THREADS = 256;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <class F, typename TX, int BM, int TM, int TN>
-__global__ void __launch_bounds__(NTHREADS)
-rmmec_kernel(const TX* __restrict__ x, const uint32_t* __restrict__ w,
-             const float* __restrict__ scales, const int* __restrict__ mask,
-             float* __restrict__ out, int M, int K, int N, int Np, int group,
-             int mk, int mn, int mask_cols) {
+__global__ void __launch_bounds__(SIMT_THREADS)
+simt_kernel(const TX* __restrict__ x, const uint32_t* __restrict__ w,
+            const float* __restrict__ scales, const int* __restrict__ mask,
+            float* __restrict__ out, int M, int K, int N, int Np, int group,
+            int mk, int mn, int mask_cols) {
   constexpr int PER = 32 / F::BITS;
-  constexpr int WCOLS = BN / PER;      // words per tile row
-  constexpr int TCOLS = BN / TN;       // threads along N
-  constexpr int TROWS = BM / TM;       // threads along M
-  static_assert(TCOLS * TROWS == NTHREADS, "thread tiling");
+  constexpr int WCOLS = SIMT_BN / PER;  // words per tile row
+  constexpr int TCOLS = SIMT_BN / TN;   // threads along N
+  constexpr int TROWS = BM / TM;        // threads along M
+  static_assert(TCOLS * TROWS == SIMT_THREADS, "thread tiling");
   constexpr uint32_t CODE_MASK = (1u << F::BITS) - 1u;
 
-  __shared__ float xs[BM][BK + 1];
-  __shared__ float ws[BK][BN];
+  __shared__ float xs[BM][SIMT_BK + 1];
+  __shared__ float ws[SIMT_BK][SIMT_BN];
 
   const int tid = threadIdx.x;
   const int tx = tid % TCOLS;
   const int ty = tid / TCOLS;
   const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int n0 = blockIdx.x * SIMT_BN;
   const int nw = Np / PER;
-  const int nend = min(n0 + BN, Np);
+  const int nend = min(n0 + SIMT_BN, Np);
 
   float acc[TM][TN];
 #pragma unroll
@@ -76,8 +118,8 @@ rmmec_kernel(const TX* __restrict__ x, const uint32_t* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const int kend = min(k0 + BK, K);
+  for (int k0 = 0; k0 < K; k0 += SIMT_BK) {
+    const int kend = min(k0 + SIMT_BK, K);
     // block gating: every thread reaches the same verdict
     bool live = false;
     for (int kb = k0 / mk; kb <= (kend - 1) / mk && !live; ++kb)
@@ -85,12 +127,12 @@ rmmec_kernel(const TX* __restrict__ x, const uint32_t* __restrict__ w,
         if (mask[kb * mask_cols + nb] != 0) { live = true; break; }
     if (!live) continue;
 
-    for (int i = tid; i < BM * BK; i += NTHREADS) {
-      const int r = i / BK, c = i % BK;
+    for (int i = tid; i < BM * SIMT_BK; i += SIMT_THREADS) {
+      const int r = i / SIMT_BK, c = i % SIMT_BK;
       const int gm = m0 + r, gk = k0 + c;
       xs[r][c] = (gm < M && gk < K) ? to_float(x[(size_t)gm * K + gk]) : 0.0f;
     }
-    for (int i = tid; i < BK * WCOLS; i += NTHREADS) {
+    for (int i = tid; i < SIMT_BK * WCOLS; i += SIMT_THREADS) {
       const int r = i / WCOLS, wc = i % WCOLS;
       const int gk = k0 + r, gwc = n0 / PER + wc;
       float* dst = &ws[r][wc * PER];
@@ -110,7 +152,7 @@ rmmec_kernel(const TX* __restrict__ x, const uint32_t* __restrict__ w,
     }
     __syncthreads();
 #pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
+    for (int kk = 0; kk < SIMT_BK; ++kk) {
       float xv[TM], wv[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) xv[i] = xs[ty + i * TROWS][kk];
@@ -153,13 +195,13 @@ template <class F, typename TX>
 cudaError_t launch_tiles(const Args& a) {
   const TX* x = static_cast<const TX*>(a.x);
   if (a.M <= 32) {
-    dim3 grid((a.N + BN - 1) / BN, (a.M + 7) / 8);
-    rmmec_kernel<F, TX, 8, 1, 2><<<grid, NTHREADS, 0, a.stream>>>(
+    dim3 grid((a.N + SIMT_BN - 1) / SIMT_BN, (a.M + 7) / 8);
+    simt_kernel<F, TX, 8, 1, 2><<<grid, SIMT_THREADS, 0, a.stream>>>(
         x, a.w, a.scales, a.mask, a.out, a.M, a.K, a.N, a.Np, a.group, a.mk,
         a.mn, a.mask_cols);
   } else {
-    dim3 grid((a.N + BN - 1) / BN, (a.M + 63) / 64);
-    rmmec_kernel<F, TX, 64, 4, 4><<<grid, NTHREADS, 0, a.stream>>>(
+    dim3 grid((a.N + SIMT_BN - 1) / SIMT_BN, (a.M + 63) / 64);
+    simt_kernel<F, TX, 64, 4, 4><<<grid, SIMT_THREADS, 0, a.stream>>>(
         x, a.w, a.scales, a.mask, a.out, a.M, a.K, a.N, a.Np, a.group, a.mk,
         a.mn, a.mask_cols);
   }
@@ -171,19 +213,539 @@ cudaError_t launch_format(const Args& a, int x_bf16) {
   return x_bf16 ? launch_tiles<F, __nv_bfloat16>(a) : launch_tiles<F, float>(a);
 }
 
+
+// ===========================================================================
+// tensor-core route (bf16 x, formats of <= 8 bits)
+// ===========================================================================
+
+constexpr int KC = 128;           // K rows of a chunk
+constexpr int LDX = KC + 8;       // row stride of a staged x tile (bf16)
+constexpr int SPLIT_M = 16;       // most rows of the split-K route
+constexpr int SPLIT_BN = 64;      // columns of a split-K N-tile
+constexpr int SPLIT_THREADS = 128;
+constexpr int FOLD_BATCH = 16;    // chunks whose partials load in one round trip
+
+// Route codes shared with kernels/rmmec_matmul.py (ROUTES).
+enum Route { ROUTE_SIMT = 0, ROUTE_SPLIT_K = 1, ROUTE_TILE64 = 2, ROUTE_TILE128 = 3 };
+
+struct Operands {
+  const bf16* x;
+  const uint32_t* w;
+  const float* scales;
+  const int* mask;
+  float* out;
+  float* scratch;   // split-K: partials (chunks, M, tiles * SPLIT_BN)
+  int* counters;    // split-K: one arrival count per N-tile, 0 between launches
+  const uint32_t* table;  // the format's decode table (see Table)
+  int M, K, N, Np, group, mk, mn, mask_cols;
+};
+
+// The block's copy of the format's decode table, made by the wrapper from
+// the same decoders as formats.cuh's (kernels/rmmec_matmul.py, _table):
+// 8-bit codes -> one bf16 each (in the low half); 4-bit formats: a byte (two
+// codes) -> the two bf16 values, low code first.
+// Loaded in two steps, so that other loads can be in flight beside it: the
+// NT threads' registers first, then shared memory.
+template <int NT>
+struct Table {
+  static_assert(256 % NT == 0 || NT % 256 == 0, "whole entries a thread");
+  static constexpr int PER = NT >= 256 ? 1 : 256 / NT;
+  uint32_t v[PER];
+  __device__ __forceinline__ void load(const uint32_t* table) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      if (threadIdx.x + j * NT < 256) v[j] = __ldg(table + threadIdx.x + j * NT);
+  }
+  __device__ __forceinline__ void store(uint32_t* lut) const {
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      if (threadIdx.x + j * NT < 256) lut[threadIdx.x + j * NT] = v[j];
+  }
+};
+
+// Does the chunk [k0, kend) x columns [n0, n1) touch a live mask block?
+// Every thread reaches the same verdict.
+__device__ __forceinline__ bool chunk_live(const Operands& op, int k0, int kend, int n0,
+                                           int n1) {
+  for (int kb = k0 / op.mk; kb <= (kend - 1) / op.mk; ++kb)
+    for (int nb = n0 / op.mn; nb <= (n1 - 1) / op.mn; ++nb)
+      if (op.mask[kb * op.mask_cols + nb] != 0) return true;
+  return false;
+}
+
+// Four packed words of row k at word column wc (of nw); zeros past K and
+// past the row's words.
+__device__ __forceinline__ uint4 load_words(const Operands& op, int k, int wc, int nw,
+                                            bool vec) {
+  if (k >= op.K) return make_uint4(0u, 0u, 0u, 0u);
+  const uint32_t* src = op.w + (size_t)k * nw + wc;
+  if (vec && wc + 3 < nw) return __ldg(reinterpret_cast<const uint4*>(src));
+  uint32_t v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = wc + e < nw ? __ldg(src + e) : 0u;
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// Decodes four words of row k, whose first code is column n, into bf16 at
+// `dst`: exact table values, times the row's group scale where there is one.
+template <int BITS>
+__device__ __forceinline__ void decode_words(const Operands& op, const uint32_t* lut,
+                                             uint4 words, int k, int n, bf16* dst) {
+  constexpr int PER = 32 / BITS;
+  const uint32_t w4[4] = {words.x, words.y, words.z, words.w};
+  uint32_t pairs[2 * PER];  // 4 * PER values as bf16 pairs
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if constexpr (BITS == 8) {
+      const uint32_t c = w4[e];
+      pairs[2 * e] = lut[c & 0xffu] | (lut[(c >> 8) & 0xffu] << 16);
+      pairs[2 * e + 1] = lut[(c >> 16) & 0xffu] | (lut[c >> 24] << 16);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) pairs[4 * e + b] = lut[(w4[e] >> (8 * b)) & 0xffu];
+    }
+  }
+  if (op.group > 0) {
+    const float* srow = op.scales + (size_t)(k / op.group) * op.Np;
+#pragma unroll
+    for (int i = 0; i < 2 * PER; ++i) {
+      const int c = n + 2 * i;
+      const float s0 = k < op.K && c < op.Np ? srow[c] : 0.0f;
+      const float s1 = k < op.K && c + 1 < op.Np ? srow[c + 1] : 0.0f;
+      const float v0 = __uint_as_float((pairs[i] & 0xffffu) << 16);
+      const float v1 = __uint_as_float(pairs[i] & 0xffff0000u);
+      pairs[i] = pack2(__float2bfloat16_rn(__fmul_rn(v0, s0)),
+                       __float2bfloat16_rn(__fmul_rn(v1, s1)));
+    }
+  }
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int i = 0; i < PER / 2; ++i)
+    d[i] = make_uint4(pairs[4 * i], pairs[4 * i + 1], pairs[4 * i + 2], pairs[4 * i + 3]);
+}
+
+// Stages x rows m0 .. m0+ROWS-1, columns k0 .. k0+KC-1 as bf16 into `xs`
+// (stride LDX), zeros past M and past K, 16 bytes a piece: cp.async where
+// x's rows are 16-byte aligned (`vec`), plain loads otherwise.  NT threads.
+template <int ROWS, int NT>
+__device__ __forceinline__ void stage_x(const Operands& op, bf16* xs, int m0, int k0, bool vec) {
+  constexpr int PIECES = KC / 8;
+  static_assert(ROWS * PIECES % NT == 0, "whole steps");
+#pragma unroll
+  for (int j = 0; j < ROWS * PIECES / NT; ++j) {
+    const int i = threadIdx.x + j * NT;
+    const int r = i / PIECES, c = (i % PIECES) * 8, m = m0 + r, k = k0 + c;
+    bf16* dst = xs + r * LDX + c;
+    if (m >= op.M || k >= op.K) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    } else if (vec) {  // K % 8 == 0: a piece is wholly inside K
+      cp_async16(dst, op.x + (size_t)m * op.K + k);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[e] = k + e < op.K ? op.x[(size_t)m * op.K + k + e] : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
+// One k16 step of a warp's part of a chunk partial: acc[MT][NT] (16 x 8 MMA
+// tiles) += x rows xr0 .. (xs) times weight columns wc0 .. (ws, stride LDW).
+template <int MT, int NT, int LDW>
+__device__ __forceinline__ void mma_step(uint32_t xb, uint32_t wb, int xr0, int wc0, int ks,
+                                         float (&acc)[MT][NT][4]) {
+  const int lane = threadIdx.x % 32;
+  const int vrow = ((lane / 8) % 2) * 8 + lane % 8;
+  uint32_t a[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    ldmatrix_x4(a[mt], xb + ((xr0 + mt * 16 + lane % 16) * LDX + ks * 16 + (lane / 16) * 8) * 2);
+#pragma unroll
+  for (int nt = 0; nt < NT; nt += 2) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, wb + ((ks * 16 + vrow) * LDW + wc0 + nt * 8 + (lane / 16) * 8) * 2);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mma_bf16(acc[mt][nt], a[mt], b[0], b[1]);
+      mma_bf16(acc[mt][nt + 1], a[mt], b[2], b[3]);
+    }
+  }
+}
+
+// A warp's part of a chunk partial: the chunk's first nks k16 steps in
+// order.  side(ks) runs after step ks (other work to hide the MMAs' latency
+// behind); a full chunk unrolls.
+template <int MT, int NT, int LDW, class Side>
+__device__ __forceinline__ void chunk_mma(const bf16* xs, const bf16* ws, int xr0, int wc0,
+                                          int nks, float (&acc)[MT][NT][4], Side side) {
+  const uint32_t xb = smem_addr(xs), wb = smem_addr(ws);
+  if (nks == KC / 16) {
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      mma_step<MT, NT, LDW>(xb, wb, xr0, wc0, ks, acc);
+      side(ks);
+    }
+  } else {
+#pragma unroll 1
+    for (int ks = 0; ks < nks; ++ks) {
+      mma_step<MT, NT, LDW>(xb, wb, xr0, wc0, ks, acc);
+      side(ks);
+    }
+  }
+}
+
+// One arrival on a split-K tile's counter (gpu scope, acquire-release: the
+// block's partial, written before the barrier that precedes this, is visible
+// to the block that sees the last count, and that block's reads after it see
+// every partial); returns the count before it.
+__device__ __forceinline__ int arrive(int* counter) {
+  int prev;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n" : "=r"(prev) : "l"(counter) : "memory");
+  return prev;
+}
+
+// out[m, n] of a folded total: per-channel scale once, at the output.
+__device__ __forceinline__ void store_out(const Operands& op, int m, int n, float v) {
+  if (m < op.M && n < op.N) op.out[(size_t)m * op.N + n] = op.group == 0 ? __fmul_rn(v, op.scales[n]) : v;
+}
+
+// ---------------------------------------------------------------------------
+// split-K: grid (tiles, chunks), one block per (64-column N-tile, chunk)
+// ---------------------------------------------------------------------------
+
+// 5 blocks an SM: qwen2's largest split-K grids (532 blocks) in one wave
+template <int BITS>
+__global__ void __launch_bounds__(SPLIT_THREADS, 5)
+split_k_kernel(Operands op) {
+  constexpr int PER = 32 / BITS, BN = SPLIT_BN, LDW = BN + 8;
+  constexpr int WN = BN / 4, NTW = WN / 8;                // warp w: columns WN w .., n8 tiles
+  constexpr int PIECES = BN / PER / 4;                    // 16-byte pieces of a tile row
+  constexpr int NLOAD = KC * PIECES / SPLIT_THREADS;      // per thread
+  __shared__ __align__(16) bf16 xs[SPLIT_M * LDX];
+  __shared__ __align__(16) bf16 ws[KC * LDW];
+  __shared__ uint32_t lut[256];
+  __shared__ int last;
+  const int tile = blockIdx.x, chunk = blockIdx.y, nchunks = gridDim.y;
+  const int n0 = tile * BN, k0 = chunk * KC, kend = min(k0 + KC, op.K);
+  const int nw = op.Np / PER, lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  float acc[1][NTW][4] = {};
+  // every first load of the block in flight at once (words, x, the
+  // per-channel scales the folding block applies, the table, the mask
+  // verdict): one round trip to memory before the decode
+  const bool vec = nw % 4 == 0 && (reinterpret_cast<uintptr_t>(op.w) & 15) == 0;
+  uint4 raw[NLOAD];
+#pragma unroll
+  for (int i = 0; i < NLOAD; ++i) {
+    const int p = threadIdx.x + i * SPLIT_THREADS, r = p / PIECES;
+    raw[i] = load_words(op, k0 + r, n0 / PER + (p % PIECES) * 4, nw, vec);
+  }
+  stage_x<SPLIT_M, SPLIT_THREADS>(op, xs, 0, k0,
+                                  op.K % 8 == 0 && (reinterpret_cast<uintptr_t>(op.x) & 15) == 0);
+  cp_async_commit();
+  const int fc = n0 + (threadIdx.x % (BN / 4)) * 4;  // the fold's columns of this thread
+  float fscale[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) fscale[j] = op.group == 0 && fc + j < op.N ? op.scales[fc + j] : 1.0f;
+  Table<SPLIT_THREADS> table;
+  table.load(op.table);
+  const bool live = chunk_live(op, k0, kend, n0, min(n0 + BN, op.Np));
+  table.store(lut);
+  if (live) {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < NLOAD; ++i) {
+      const int p = threadIdx.x + i * SPLIT_THREADS, r = p / PIECES, c = (p % PIECES) * 4 * PER;
+      decode_words<BITS>(op, lut, raw[i], k0 + r, n0 + c, ws + r * LDW + c);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    chunk_mma<1, NTW, LDW>(xs, ws, 0, WN * w, (kend - k0 + 15) / 16, acc, [](int) {});
+  } else {
+    cp_async_wait_all();  // a gated chunk: x's copy lands unused
+  }
+  const int g = lane / 4, t = lane % 4;
+  if (nchunks == 1) {  // the partial is the total
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        store_out(op, g + 8 * (e / 2), n0 + WN * w + 8 * nt + 2 * t + (e & 1), acc[0][nt][e]);
+    return;
+  }
+  const int lds = gridDim.x * BN;
+#pragma unroll
+  for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = g + 8 * i;
+      if (m < op.M)
+        *reinterpret_cast<float2*>(op.scratch + ((size_t)chunk * op.M + m) * lds + n0 +
+                                   WN * w + 8 * nt + 2 * t) =
+            make_float2(acc[0][nt][2 * i], acc[0][nt][2 * i + 1]);
+    }
+  // the block's partial is out; the last block of the tile folds (the
+  // acq_rel count orders the partials of every earlier block before its reads)
+  __syncthreads();
+  if (threadIdx.x == 0) last = arrive(op.counters + tile) == nchunks - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last block: fold the tile's partials in chunk order, four columns a
+  // thread per step (the same four columns in every step)
+  for (int e = threadIdx.x; e < op.M * (BN / 4); e += SPLIT_THREADS) {
+    const int m = e / (BN / 4);
+    const float* src = op.scratch + (size_t)m * lds + fc;
+    const size_t stride = (size_t)op.M * lds;
+    float4 tot = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int c0 = 0; c0 < nchunks; c0 += FOLD_BATCH) {
+      float4 v[FOLD_BATCH];
+#pragma unroll
+      for (int b = 0; b < FOLD_BATCH; ++b)
+        if (c0 + b < nchunks)
+          v[b] = __ldcg(reinterpret_cast<const float4*>(src + (c0 + b) * stride));
+#pragma unroll
+      for (int b = 0; b < FOLD_BATCH; ++b) {
+        if (c0 + b >= nchunks) break;
+        if (c0 + b == 0) {
+          tot = v[b];
+        } else {
+          tot.x = __fadd_rn(tot.x, v[b].x);
+          tot.y = __fadd_rn(tot.y, v[b].y);
+          tot.z = __fadd_rn(tot.z, v[b].z);
+          tot.w = __fadd_rn(tot.w, v[b].w);
+        }
+      }
+    }
+    const float tv[4] = {tot.x, tot.y, tot.z, tot.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (fc + j < op.N)
+        op.out[(size_t)m * op.N + fc + j] = op.group == 0 ? __fmul_rn(tv[j], fscale[j]) : tv[j];
+  }
+  if (threadIdx.x == 0) op.counters[tile] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// tiles: grid (N tiles, M tiles), one block per BM x BN output tile
+// ---------------------------------------------------------------------------
+
+template <int BM_, int BN_, int WARPS_M_, int WARPS_N_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int LDW = BN + 8;
+  static constexpr int MT = BM / WARPS_M / 16;  // 16-row MMA tiles of a warp
+  static constexpr int NT = BN / WARPS_N / 8;   // 8-column MMA tiles of a warp
+  static constexpr int STAGES = 3;              // the cp.async ring of chunks
+  static constexpr int FLAGS = 256;             // chunks whose verdicts are kept
+  static constexpr int HEAD = 1024 + FLAGS;     // the table and the verdicts
+  // shared memory: the head, the ring's x tiles and raw words, two decoded
+  // weight tiles
+  static constexpr int X_BYTES = BM * LDX * 2;
+  static constexpr int W_BYTES = KC * LDW * 2;
+  template <int BITS>
+  __host__ __device__ static constexpr int raw_bytes() { return KC * (BN / (32 / BITS)) * 4; }
+  template <int BITS>
+  __host__ __device__ static constexpr int smem() {
+    return HEAD + STAGES * (X_BYTES + raw_bytes<BITS>()) + 2 * W_BYTES;
+  }
+};
+
+// Chunk c's words and x tile arrive in ring slot c % STAGES two chunks ahead
+// of its MMAs (their copies issued after the barrier of chunk c - 2); its
+// weights are decoded into ws[c % 2] one chunk ahead, a share per k16 step of
+// chunk c - 1's MMAs.  So the copies, the decode and the MMAs overlap, and
+// one barrier a chunk separates every write from its reads.
+template <int BITS, class T>
+__global__ void __launch_bounds__(T::THREADS)
+tile_kernel(Operands op) {
+  constexpr int BM = T::BM, BN = T::BN, WARPS_N = T::WARPS_N, S = T::STAGES;
+  constexpr int NTH = T::THREADS, LDW = T::LDW, MT = T::MT, NT = T::NT;
+  constexpr int PER = 32 / BITS, WPR = BN / PER, PIECES = WPR / 4;
+  constexpr int RAW = T::template raw_bytes<BITS>();
+  constexpr int KS = KC / 16;                // k16 steps of a chunk
+  constexpr int DP = KC * PIECES / NTH;      // word pieces a thread stages and decodes
+  constexpr int STEP = KS / DP;              // k16 steps between two of them
+  static_assert(KC * PIECES % NTH == 0 && KS % DP == 0, "whole word pieces a k16 step");
+  extern __shared__ __align__(16) uint8_t sm[];
+  uint32_t* lut = reinterpret_cast<uint32_t*>(sm);
+  uint8_t* live_s = sm + 1024;  // chunk c < T::FLAGS live?
+  bf16* xs = reinterpret_cast<bf16*>(sm + T::HEAD);
+  uint32_t* raw = reinterpret_cast<uint32_t*>(sm + T::HEAD + S * T::X_BYTES);
+  bf16* ws = reinterpret_cast<bf16*>(sm + T::HEAD + S * (T::X_BYTES + RAW));
+
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int nw = op.Np / PER, n1 = min(n0 + BN, op.Np);
+  const int nchunks = (op.K + KC - 1) / KC;
+  const bool wvec = nw % 4 == 0 && (reinterpret_cast<uintptr_t>(op.w) & 15) == 0;
+  const bool xvec = op.K % 8 == 0 && (reinterpret_cast<uintptr_t>(op.x) & 15) == 0;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+
+  auto live_now = [&](int c) {
+    return chunk_live(op, c * KC, min(c * KC + KC, op.K), n0, n1);
+  };
+  // after the first barrier: the verdicts of the first T::FLAGS chunks
+  auto live = [&](int c) { return c < T::FLAGS ? live_s[c] != 0 : live_now(c); };
+  // word piece j of chunk c into its ring slot (cp.async where aligned)
+  auto stage_words = [&](int c, int j) {
+    const int p = threadIdx.x + j * NTH;
+    const int r = p / PIECES, wc = n0 / PER + (p % PIECES) * 4, k = c * KC + r;
+    uint32_t* d = raw + (c % S) * (RAW / 4) + r * WPR + (p % PIECES) * 4;
+    if (wvec && k < op.K && wc < nw)
+      cp_async16(d, op.w + (size_t)k * nw + wc);
+    else
+      *reinterpret_cast<uint4*>(d) = load_words(op, k, wc, nw, false);
+  };
+  // chunk c's words and x tile into its ring slot; one cp.async group
+  auto stage = [&](int c, bool copy) {
+    if (copy) {
+#pragma unroll
+      for (int j = 0; j < DP; ++j) stage_words(c, j);
+      stage_x<BM, NTH>(op, xs + (c % S) * (T::X_BYTES / 2), m0, c * KC, xvec);
+    }
+    cp_async_commit();
+  };
+  // piece j of chunk c's raw words -> its decoded bf16 tile ws[c % 2]
+  auto decode = [&](int c, int j) {
+    const int p = threadIdx.x + j * NTH;
+    const int r = p / PIECES, col = (p % PIECES) * 4 * PER;
+    decode_words<BITS>(op, lut,
+                       *reinterpret_cast<const uint4*>(raw + (c % S) * (RAW / 4) + r * WPR +
+                                                       (p % PIECES) * 4),
+                       c * KC + r, n0 + col, ws + (c % 2) * (T::W_BYTES / 2) + r * LDW + col);
+  };
+
+  // the per-channel scales of this thread's output columns, loaded early
+  float osc[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = n0 + (wn * NT + nt) * 8 + 2 * (lane % 4) + e;
+      osc[nt][e] = op.group == 0 && n < op.N ? op.scales[n] : 1.0f;
+    }
+  // every first load in flight at once: chunks 0 and 1 (copied even where
+  // gated, unused then), the table, the mask verdicts
+  stage(0, true);
+  stage(1, nchunks > 1);
+  Table<NTH> table;
+  table.load(op.table);
+  for (int c = threadIdx.x; c < min(nchunks, T::FLAGS); c += NTH) live_s[c] = live_now(c);
+  table.store(lut);
+  cp_async_wait_group<1>();
+  __syncthreads();  // the table, the verdicts and chunk 0's words
+  if (live(0))
+#pragma unroll
+    for (int j = 0; j < DP; ++j) decode(0, j);
+
+  float tot[MT][NT][4] = {};
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait_all();
+    // chunk c decoded, chunk c+1 staged; every warp is done with the MMAs of
+    // chunk c-1 (ring slot (c+2) % S, ws[(c+1) % 2])
+    __syncthreads();
+    stage(c + 2, c + 2 < nchunks && live(c + 2));
+    const bool next = c + 1 < nchunks && live(c + 1);
+    auto side = [&](int ks) {
+      if (next && ks % STEP == 0) decode(c + 1, ks / STEP);
+    };
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.0f;
+    int nks = 0;
+    if (live(c)) {
+      nks = (min(c * KC + KC, op.K) - c * KC + 15) / 16;
+      chunk_mma<MT, NT, LDW>(xs + (c % S) * (T::X_BYTES / 2), ws + (c % 2) * (T::W_BYTES / 2),
+                             wm * MT * 16, wn * NT * 8, nks, acc, side);
+    }
+#pragma unroll 1
+    for (int ks = nks; ks < KS; ++ks) side(ks);  // the shares no k16 step took
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tot[mt][nt][e] = c == 0 ? acc[mt][nt][e] : __fadd_rn(tot[mt][nt][e], acc[mt][nt][e]);
+  }
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + (wm * MT + mt) * 16 + g + 8 * (e / 2);
+        const int n = n0 + (wn * NT + nt) * 8 + 2 * t + (e & 1);
+        if (m < op.M && n < op.N)
+          op.out[(size_t)m * op.N + n] =
+              op.group == 0 ? __fmul_rn(tot[mt][nt][e], osc[nt][e & 1]) : tot[mt][nt][e];
+      }
+}
+
+using Tile64 = Tile<64, 64, 4, 2>;
+using Tile128 = Tile<128, 128, 2, 4>;
+
+template <int BITS, class T>
+cudaError_t launch_tile(const Operands& op, cudaStream_t stream) {
+  constexpr int smem = T::template smem<BITS>();
+  auto kernel = tile_kernel<BITS, T>;
+  // once per kernel and process: the attribute call costs the host more
+  // than a small launch
+  static bool allowed = false;
+  if (!allowed && smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    allowed = true;
+  }
+  const dim3 grid((op.N + T::BN - 1) / T::BN, (op.M + T::BM - 1) / T::BM);
+  kernel<<<grid, T::THREADS, smem, stream>>>(op);
+  return cudaGetLastError();
+}
+
+template <int BITS>
+cudaError_t launch_tensor(const Operands& op, int route, cudaStream_t stream) {
+  if (route == ROUTE_SPLIT_K) {
+    const dim3 grid((op.N + SPLIT_BN - 1) / SPLIT_BN, (op.K + KC - 1) / KC);
+    split_k_kernel<BITS><<<grid, SPLIT_THREADS, 0, stream>>>(op);
+    return cudaGetLastError();
+  }
+  if (route == ROUTE_TILE128) return launch_tile<BITS, Tile128>(op, stream);
+  return launch_tile<BITS, Tile64>(op, stream);
+}
+
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// a format this library has no decoder for).
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// a format this library has no decoder for or a route that cannot take the
+// call (the tensor routes: bf16 x, <= 8 bits and the format's decode table;
+// split-K: M <= 16, with scratch and counters when K > KC).
 extern "C" int rmmec_matmul(const void* x, int x_bf16, const void* words,
                             const void* scales, const void* mask, void* out,
-                            int M, int K, int N, int Np, int group, int mk,
-                            int mn, int mask_cols, int kind, int bits, int es,
+                            void* scratch, void* counters, const void* table, int M,
+                            int K, int N, int Np, int group, int mk, int mn,
+                            int mask_cols, int route, int kind, int bits, int es,
                             int ebits, int mbits, int has_nan, int frac_bits,
                             void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (route != ROUTE_SIMT) {
+    if (!x_bf16 || !table || (bits != 4 && bits != 8) || route > ROUTE_TILE128 ||
+        (route == ROUTE_SPLIT_K && (M > SPLIT_M || (K > KC && (!scratch || !counters)))))
+      return invalid;
+    const Operands op{static_cast<const bf16*>(x), static_cast<const uint32_t*>(words),
+                      static_cast<const float*>(scales), static_cast<const int*>(mask),
+                      static_cast<float*>(out), static_cast<float*>(scratch),
+                      static_cast<int*>(counters), static_cast<const uint32_t*>(table), M,
+                      K, N, Np, group, mk, mn, mask_cols};
+    return static_cast<int>(bits == 4 ? launch_tensor<4>(op, route, st)
+                                      : launch_tensor<8>(op, route, st));
+  }
   Args a{x, static_cast<const uint32_t*>(words), static_cast<const float*>(scales),
          static_cast<const int*>(mask), static_cast<float*>(out),
-         M, K, N, Np, group, mk, mn, mask_cols, static_cast<cudaStream_t>(stream)};
+         M, K, N, Np, group, mk, mn, mask_cols, st};
   if (kind == KIND_POSIT) {
     if (bits == 4 && es == 1) return launch_format<Posit<4, 1>>(a, x_bf16);
     if (bits == 8 && es == 0) return launch_format<Posit<8, 0>>(a, x_bf16);
@@ -196,5 +758,5 @@ extern "C" int rmmec_matmul(const void* x, int x_bf16, const void* words,
     if (bits == 4 && frac_bits == 2) return launch_format<Fixed<4, 2>>(a, x_bf16);
     if (bits == 8 && frac_bits == 4) return launch_format<Fixed<8, 4>>(a, x_bf16);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return invalid;
 }

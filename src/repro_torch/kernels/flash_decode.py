@@ -22,7 +22,7 @@ q and p split into three bf16 terms, K and V exact in bf16) and fold
 with the same function, so paged decode equals contiguous decode
 bitwise when page == blk, and a C = 1 prefill chunk equals paged decode
 bitwise.  The kernels take Dh in {32, 64, 128} and pages (KV blocks) of
-8..128 slots in steps of 8.
+1..128 slots, so every block size ``default_kv_block`` chooses.
 
 The plain versions are the twins of the reference's blocked XLA loops
 (``repro.models.attention.decode_quantized_blocks``,
@@ -218,18 +218,13 @@ def _cuda_operands(q, named, index_names=()):
     return q.float().contiguous()
 
 
-def _check_kernel_shape(name: str, dh: int, page: int, *pool) -> None:
+def _check_kernel_shape(name: str, dh: int, page: int) -> None:
     """Raises for what the CUDA kernels do not take: Dh outside {32, 64,
-    128}, a page (KV block) that is not a multiple of 8 up to 128, or
-    pool operands not 16-byte aligned (pages are copied 16 bytes at a
-    time)."""
-    if dh not in _KERNEL_DH or page % 8 or not 0 < page <= _MAX_PAGE:
+    128}, or a page (KV block) outside 1..128 slots."""
+    if dh not in _KERNEL_DH or not 0 < page <= _MAX_PAGE:
         raise ValueError(f"{name} on the card takes Dh in {_KERNEL_DH} and "
-                         f"a page of 8..{_MAX_PAGE} slots in steps of 8, "
-                         f"not Dh={dh}, page={page}")
-    if any(x.data_ptr() % 16 for x in pool):
-        raise ValueError(f"{name}: the pool's codes and scales must start "
-                         f"on 16-byte boundaries")
+                         f"a page of 1..{_MAX_PAGE} slots, not Dh={dh}, "
+                         f"page={page}")
 
 
 def _decode_cuda(q, k_codes, k_scale, v_codes, v_scale, page: int,
@@ -242,8 +237,7 @@ def _decode_cuda(q, k_codes, k_scale, v_codes, v_scale, page: int,
     ``pos``; a null ``pad`` means no left pad.  Counts nothing: the
     wrappers count their own launches."""
     b, kh, g, dh = q.shape
-    _check_kernel_shape("decode", dh, page, k_codes, k_scale, v_codes,
-                        v_scale)
+    _check_kernel_shape("decode", dh, page)
     scratch = torch.empty(b * kh * n_pages * g * (dh + 2),
                           dtype=torch.float32, device=q.device)
     out = torch.empty((b, kh, g, dh), dtype=torch.float32, device=q.device)
@@ -373,8 +367,7 @@ def paged_flash_prefill(q: torch.Tensor, k_codes: torch.Tensor,
                                page_table=page_table, start=start),
                        ("page_table", "start"))
     page, gs = k_codes.shape[1], k_scale.shape[-1]
-    _check_kernel_shape("paged_flash_prefill", dh, page, k_codes, k_scale,
-                        v_codes, v_scale)
+    _check_kernel_shape("paged_flash_prefill", dh, page)
     out = torch.empty((b, c, kh, g, dh), dtype=torch.float32, device=q.device)
     err = _lib().paged_flash_prefill(
         q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),

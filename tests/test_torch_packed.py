@@ -143,3 +143,30 @@ def test_kernel_vs_plain_on_card(cuda, name, group, stacked):
         torch.cuda.synchronize()
         assert (got - want).abs().max().item() <= \
             1e-4 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("name", ["fp4", "posit8_0", "posit16_1"])
+@pytest.mark.parametrize("group", [None, 32])
+@pytest.mark.parametrize("xdtype", ["bfloat16", "float32"])
+def test_kernel_rows_bitwise_on_card(cuda, name, group, xdtype):
+    """A row's output is bitwise the same whatever M is (split-K, 64- and
+    128-row tiles, the SIMT kernel) and whatever the other rows hold, at a
+    K that is not a multiple of the 128-row chunk."""
+    w = torch.from_numpy(_weight((1100, 4864), 9, zero_rows=512))
+    t = tops.pack_tensor(tfmt.FORMATS[name], w.to(cuda), group_size=group)
+    x = torch.randn(1024, 1100, device=cuda).to(getattr(torch, xdtype))
+
+    def run(xx):
+        return rmmec_matmul(xx.contiguous(), t.words, t.scales, t.mask,
+                            t.spec, 4864)
+
+    full = run(x)
+    for m in (256, 17, 16, 8, 1):
+        assert torch.equal(run(x[:m]), full[:m]), m
+    other = torch.randn(1024, 1100, device=cuda).to(x.dtype)
+    other[5] = x[5]
+    other[700] = x[700]
+    mixed = run(other)
+    assert torch.equal(mixed[5], full[5]) and torch.equal(mixed[700],
+                                                          full[700])
+    assert torch.equal(run(other[:8])[5], full[5])

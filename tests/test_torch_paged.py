@@ -21,6 +21,7 @@ from repro.serve import paged_kv as jpk
 from repro_torch.configs import get_config
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_decode import (_check_kernel_shape,
+                                              default_kv_block,
                                               flash_decode_plain,
                                               paged_flash_decode,
                                               paged_flash_decode_plain,
@@ -194,19 +195,24 @@ def test_paged_wrappers_reject_bad_shapes():
 
 @pytest.mark.parametrize("dh,page,ok", [
     (32, 8, True), (64, 128, True), (128, 40, True), (64, 24, True),
-    (48, 16, False), (64, 12, False), (64, 136, False), (64, 0, False)])
+    (64, 12, True), (64, 1, True), (64, 2, True), (32, 4, True),
+    (128, 127, True), (48, 16, False), (64, 136, False), (64, 0, False)])
 def test_kernel_shape_guard(dh, page, ok):
-    """What the CUDA kernels take (Dh in {32, 64, 128}, pages of 8..128
-    slots in steps of 8, 16-byte aligned pool operands) is checked in
+    """What the CUDA kernels take (Dh in {32, 64, 128}, pages of 1..128
+    slots: every block size ``default_kv_block`` chooses) is checked in
     Python before a launch."""
-    codes = torch.zeros(4 * 16 + 1, dtype=torch.uint8)
     if ok:
-        _check_kernel_shape("decode", dh, page, codes[:64], codes[16:])
-        with pytest.raises(ValueError, match="16-byte"):
-            _check_kernel_shape("decode", dh, page, codes[1:])
+        _check_kernel_shape("decode", dh, page)
     else:
-        with pytest.raises(ValueError, match="page"):
-            _check_kernel_shape("decode", dh, page, codes)
+        with pytest.raises(ValueError, match="Dh in"):
+            _check_kernel_shape("decode", dh, page)
+
+
+@pytest.mark.parametrize("max_len", [256, 100, 66, 7, 1024])
+def test_kernel_shape_guard_takes_every_default_kv_block(max_len):
+    """The static engine's block is ``default_kv_block(max_len)``: the
+    kernels take it whatever ``max_len`` is (100 gives 4, 66 gives 2)."""
+    _check_kernel_shape("decode", 64, default_kv_block(max_len))
 
 
 # ---------------------------------------------------------------------------
