@@ -26,8 +26,9 @@ Phases, each of which fails the run (non-zero exit) on any miss:
      projection and every decode attention went through the kernels;
   4. the reduced config (float32) served on the card and on the CPU
      (plain versions) from the same weights: logits and tokens must agree,
-     also at max_len 100 and 66 (KV blocks of 4 and 2 slots), with the
-     decode kernel's launches counted.
+     also at max_len 100 and 66 (KV blocks of 4 and 2 slots) and at
+     head_dim 256 (gemma-2b's width), with the decode kernel's launches
+     counted.
 
 and, for continuous batching over the paged posit8 KV pool:
 
@@ -41,14 +42,22 @@ and, for continuous batching over the paged posit8 KV pool:
       against the decode entry point over the same cache as pages, and
       C=1 prefill bitwise against paged decode; pages of 24, 16, 4, 2 and
       1 slots (the kernels' generic-width path) against the plain versions
-      too, the last three also bitwise against ``flash_decode``;
+      too, the last three also bitwise against ``flash_decode``; pages of
+      256 and 131 slots (walked as sub-pages), decode at page 256 bitwise
+      against decode at page 128 and contiguous decode at blk 128; heads
+      of 256 (gemma-2b: Kh=1, G=8), 112 and 40 columns at page 128, each
+      timed beside SDPA;
   3b. ``ContinuousEngine`` serving full-width qwen2-0.5b (paper_mixed
       weights, 20 pages of 128 slots, prefix cache, 256-token chunks) a
       16-request mix with a shared preamble and staggered arrivals, at
       K=1 and K=4 decode steps per dispatch under the sync guard: equal
-      tokens, a preemption and a prefix hit, exact launch counts;
+      tokens, a preemption and a prefix hit, exact launch counts; then
+      K=1 on 10 pages of 256 slots: tokens equal the page-128 run's for
+      every request neither run preempted;
   4b. the reduced config (float32): the carry context against the static
       engine, the card against the CPU, and prefix cache on against off;
+      the serving CLI with ``--continuous --prefill-chunk 256`` (its page
+      is the chunk) on the card;
 
 and, for the paper's SIMD-MAC engine plane:
 
@@ -57,7 +66,8 @@ and, for the paper's SIMD-MAC engine plane:
       on qwen2-0.5b's FP4 FFN slice (896 x 4864, stacked layout), and the
       ``quire_dot`` limbs bit for bit against theirs (random 64 x 1024
       codes with NaR, the cancellation case also against
-      ``core.quire.quire_dot_exact``, 4096 x 4096);
+      ``core.quire.quire_dot_exact``, 4096 x 4096), each kernel timed at
+      both of its shapes beside its bound;
   5.  the engine plane's entry point at its own full size: the Table II
       and Table III bench twins (``repro_torch.benchmarks``) on the card,
       their CSV rows logged, with exact launch counts of ``rmmec_matmul``,
@@ -170,9 +180,8 @@ def phase_build() -> None:
             f"{len(spills)}")
         for ln in spills[:4]:
             log(f"[build]   {ln}")
-        if name == "rmmec_matmul":   # every instantiation's registers
-            for fn, used in _ptxas_kernels(rep):
-                log(f"[build]   {used} <- {fn[:110]}")
+        for fn, used in _ptxas_kernels(rep):   # every instantiation's
+            log(f"[build]   {used} <- {fn[:110]}")
 
 
 def _ptxas_kernels(report: str):
@@ -671,6 +680,36 @@ def phase_parity(fails) -> None:
         if n != want:
             fails.append(f"parity: max_len={max_len} flash_decode launched "
                          f"{n} times, expected {want}")
+    # gemma-2b's head width: the 256-wide kernels (64-slot sub-pages)
+    wide = dataclasses.replace(cfg, head_dim=256)
+    wparams = zoo.init_model(wide, torch.Generator("cpu").manual_seed(7))
+    engs = {dev: ServeEngine(wide, wparams, max_len=64, quantized_kv=True,
+                             policy=PrecisionPolicy.paper_mixed(), device=dev)
+            for dev in ("cpu", "cuda")}
+    wlogits = {}
+    for dev, eng in engs.items():
+        batch = {"tokens": torch.as_tensor(toks, device=dev)}
+        with torch.inference_mode():
+            wlogits[dev] = zoo.apply_model(eng.params, batch, wide)[0].cpu()
+    err = (wlogits["cuda"] - wlogits["cpu"]).abs().max().item()
+    flash_decode.launches = 0
+    outs = {dev: eng.generate(toks, steps, lengths=lengths)
+            for dev, eng in engs.items()}
+    torch.cuda.synchronize()
+    n = flash_decode.launches
+    same = bool(np.array_equal(outs["cpu"], outs["cuda"]))
+    want = wide.n_layers * steps
+    log(f"[parity] {wide.name} (float32) head_dim=256: prefill logits "
+        f"max_abs_err {err:.3e} (tol {LOGIT_ATOL}); ragged greedy tokens "
+        f"equal: {same}; flash_decode launches {n}, expected {want}")
+    if not err <= LOGIT_ATOL:
+        fails.append(f"parity: head_dim=256 logits differ by {err}")
+    if not same:
+        fails.append("parity: head_dim=256 greedy tokens differ between "
+                     "cuda and cpu")
+    if n != want:
+        fails.append(f"parity: head_dim=256 flash_decode launched {n} "
+                     f"times, expected {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -828,9 +867,106 @@ def phase_paged(summary, fails) -> None:
                          flash_decode(q3, *contig, p_, softcap=20.0, blk=gpage),
                          fails)
 
-    # times at the continuous path's shapes: a decode dispatch row set of
-    # eight requests mid-generation, and one 256-token chunk late in a
-    # prompt (768 live slots)
+    # pages of more than 128 slots walk as sub-pages: 256 (two of 128) and
+    # 131 (prime: 131 sub-pages of one slot)
+    for bpage, group in ((256, None), (256, 32), (131, None)):
+        bnp = 4 if bpage == 256 else 3
+        bpool = _paged_pool(gen, 3 * bnp + 1, bpage, kh, dh, group)
+        bpt = torch.tensor(rng.permutation(np.arange(1, 3 * bnp + 1))
+                           .reshape(3, bnp), dtype=torch.int32, device="cuda")
+        bpos = torch.tensor([0, bpage + 5, bnp * bpage - 1],
+                            dtype=torch.int32, device="cuda")
+        q3 = q[:3].contiguous()
+        got = paged_flash_decode(q3, *bpool, bpt, bpos, 20.0)
+        err_d = max(err_d, _check(
+            f"decode page={bpage} group={group} pos={bpos.tolist()}", got,
+            paged_flash_decode_plain(q3, *bpool, bpt, bpos, 20.0),
+            ref.paged_flash_decode_ref(q3, *bpool, bpt, bpos, 20.0), fails))
+        _bitwise(f"C=1 prefill == decode page={bpage} group={group}",
+                 paged_flash_prefill(q3[:, None], *bpool, bpt, bpos,
+                                     20.0)[:, 0], got, fails)
+        bc = 256 if bpage == 256 else 96
+        q5 = torch.randn((3, bc, kh, g, dh), generator=gen, device="cuda")
+        bst = torch.tensor([0, bpage, 2 * bpage], dtype=torch.int32,
+                           device="cuda")
+        err_p = max(err_p, _check(
+            f"prefill page={bpage} group={group} C={bc} "
+            f"start={bst.tolist()}", paged_flash_prefill(q5, *bpool, bpt, bst),
+            paged_flash_prefill_plain(q5, *bpool, bpt, bst),
+            ref.paged_prefill_ref(q5, *bpool, bpt, bst), fails))
+        if bpage == 256:
+            # one cache scattered over pages of 256 and of 128 slots:
+            # decode at page 256 == decode at page 128 == contiguous
+            # decode at blk 128, bitwise
+            kv = torch.randn((2, 3, bnp * bpage, kh, dh), generator=gen,
+                             device="cuda")
+            contig = (*quantize_kv(kv[0], group), *quantize_kv(kv[1], group))
+            big = [_scatter(x, bpt, 3 * bnp + 1, bpage) for x in contig]
+            pt128 = torch.tensor(rng.permutation(np.arange(1, 6 * bnp + 1))
+                                 .reshape(3, 2 * bnp), dtype=torch.int32,
+                                 device="cuda")
+            small = [_scatter(x, pt128, 6 * bnp + 1, 128) for x in contig]
+            for p_ in (0, 127, 128, 255, 256, 700, bnp * bpage - 1):
+                pos = torch.full((3,), p_, dtype=torch.int32, device="cuda")
+                at256 = paged_flash_decode(q3, *big, bpt, pos, 20.0)
+                _bitwise(f"page 256 == contiguous blk 128 group={group} "
+                         f"pos={p_}", at256,
+                         flash_decode(q3, *contig, p_, softcap=20.0, blk=128),
+                         fails)
+                _bitwise(f"page 256 == page 128 group={group} pos={p_}",
+                         at256, paged_flash_decode(q3, *small, pt128, pos,
+                                                   20.0), fails)
+
+    # head widths other than 64 at page 128: gemma-2b's attention (Kh=1,
+    # G=8, Dh=256: 64-slot sub-pages), 112 (kimi-k2's width, on the
+    # 128-wide kernel) and 40 (on the 64-wide kernel, staged byte by byte)
+    for wkh, wg, wdh in ((1, 8, 256), (2, 7, 112), (2, 7, 40)):
+        wpool = _paged_pool(gen, n_pages + 1, page, wkh, wdh, None)
+        wpt = torch.tensor(rng.permutation(np.arange(1, n_pages + 1))
+                           .reshape(b, npp), dtype=torch.int32, device="cuda")
+        for group in (None, 8):
+            if group is not None:
+                wpool = _paged_pool(gen, n_pages + 1, page, wkh, wdh, group)
+            wq = torch.randn((b, wkh, wg, wdh), generator=gen, device="cuda")
+            wpos = torch.tensor([0, 127, 128, 1023, 5, 300, 777, 640],
+                                dtype=torch.int32, device="cuda")
+            got = paged_flash_decode(wq, *wpool, wpt, wpos, 20.0)
+            err_d = max(err_d, _check(
+                f"decode Kh={wkh} G={wg} Dh={wdh} group={group}", got,
+                paged_flash_decode_plain(wq, *wpool, wpt, wpos, 20.0),
+                ref.paged_flash_decode_ref(wq, *wpool, wpt, wpos, 20.0),
+                fails))
+            _bitwise(f"C=1 prefill == decode Kh={wkh} G={wg} Dh={wdh} "
+                     f"group={group}", paged_flash_prefill(
+                         wq[:, None], *wpool, wpt, wpos, 20.0)[:, 0], got,
+                     fails)
+            wq5 = torch.randn((2, 256, wkh, wg, wdh), generator=gen,
+                              device="cuda")
+            wst = torch.tensor([0, 512], dtype=torch.int32, device="cuda")
+            err_p = max(err_p, _check(
+                f"prefill Kh={wkh} G={wg} Dh={wdh} group={group} C=256 "
+                f"start={wst.tolist()}",
+                paged_flash_prefill(wq5, *wpool, wpt[:2], wst, 20.0),
+                paged_flash_prefill_plain(wq5, *wpool, wpt[:2], wst, 20.0),
+                ref.paged_prefill_ref(wq5, *wpool, wpt[:2], wst, 20.0), fails))
+        _paged_times(f"Kh={wkh} G={wg} Dh={wdh}", gen, rng, b, wkh, wg, wdh,
+                     page, npp)
+
+    # times at the continuous path's shapes (qwen2-0.5b)
+    d, p = _paged_times("", gen, rng, b, kh, g, dh, page, npp)
+    summary["paged_flash_decode"] = dict(max_abs_err=err_d, **d)
+    summary["paged_flash_prefill"] = dict(max_abs_err=err_p, **p)
+
+
+def _paged_times(tag, gen, rng, b, kh, g, dh, page, npp):
+    """Times of both paged kernels at the continuous path's shapes: a
+    decode dispatch row set of ``b`` requests mid-generation, and one
+    256-token chunk late in a prompt (768 live slots); returns the two
+    summaries (ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    from repro_torch.kernels.flash_decode import (
+        paged_flash_decode, paged_flash_decode_plain, paged_flash_prefill,
+        paged_flash_prefill_plain)
+    n_pages = b * npp
     pool = _paged_pool(gen, n_pages + 1, page, kh, dh, None)
     pt = torch.tensor(rng.permutation(np.arange(1, n_pages + 1))
                       .reshape(b, npp), dtype=torch.int32, device="cuda")
@@ -848,13 +984,13 @@ def phase_paged(summary, fails) -> None:
     live = sum(p_ + 1 for p_ in positions)
     nbytes = live * slot_bytes + 2 * q.numel() * 4 + pt.numel() * 4 + b * 4
     b_ms, b_by = bound_ms(nbytes, 4.0 * live * kh * g * dh, PEAK_FLOPS["f32"])
-    log(f"[paged] time decode B={b} positions={positions}: kernel {ms:.4f} "
-        f"ms, plain {plain:.4f} ms, library (SDPA, bf16, gathered "
+    head = f"{tag} " if tag else ""
+    log(f"[paged] time decode {head}B={b} positions={positions}: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, library (SDPA, bf16, gathered "
         f"dequantized prefix, masked) {lib:.4f} ms, bound {b_ms:.5f} ms "
         f"({b_by})")
-    summary["paged_flash_decode"] = dict(
-        max_abs_err=err_d, ms=ms, plain_ms=plain, library_ms=lib,
-        bound_ms=b_ms, bound_by=b_by)
+    decode = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                  bound_by=b_by)
 
     c, start = 256, 512
     q5 = torch.randn((1, c, kh, g, dh), generator=gen, device="cuda")
@@ -875,14 +1011,14 @@ def phase_paged(summary, fails) -> None:
     # the main path hands the kernel bf16 activations: one nonzero q term
     q5b = q5.to(torch.bfloat16).float()
     ms_b = time_ms(lambda: paged_flash_prefill(q5b, *pool, pt[:1], st))
-    log(f"[paged] time prefill B=1 C={c} start={start}: kernel {ms:.4f} ms "
-        f"(bf16-valued q, the main path's: {ms_b:.4f} ms), plain {plain:.4f} "
-        f"ms, library (SDPA, bf16, causal mask) {lib:.4f} ms, bound "
-        f"{b_ms:.5f} ms ({b_by}, f32), tensor-core bound {tc_ms:.5f} ms "
-        f"({tc_by}, 3 bf16 terms)")
-    summary["paged_flash_prefill"] = dict(
-        max_abs_err=err_p, ms=ms, plain_ms=plain, library_ms=lib,
-        bound_ms=b_ms, bound_by=b_by)
+    log(f"[paged] time prefill {head}B=1 C={c} start={start}: kernel "
+        f"{ms:.4f} ms (bf16-valued q, the main path's: {ms_b:.4f} ms), plain "
+        f"{plain:.4f} ms, library (SDPA, bf16, causal mask) {lib:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}, f32), tensor-core bound {tc_ms:.5f} "
+        f"ms ({tc_by}, 3 bf16 terms)")
+    prefill = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                   bound_by=b_by)
+    return decode, prefill
 
 
 def _scatter(x, perm, n_pages, page):
@@ -1062,7 +1198,59 @@ def phase_continuous(summary, fails) -> None:
                      f"{differ} (preempted: K=1 {stats[1]['preempted']}, "
                      f"K=4 {stats[4]['preempted']})")
     summary["continuous"] = stats
+    _continuous_page_256(cfg, params, kw, reqs, outs[1], stats[1], counters,
+                         fails)
     profile_continuous(cfg, params, kw, reqs)
+
+
+def _continuous_page_256(cfg, params, kw, reqs, want, want_stats, counters,
+                         fails) -> None:
+    """The same traffic at K=1 on pages of 256 slots (10 of them plus the
+    parking page: the bytes of 20 of 128), walked by the kernels as
+    128-slot sub-pages: tokens equal the page-128 run's for every request
+    neither run preempted; launch counts exact."""
+    from repro_torch.obs import TraceRecorder
+    from repro_torch.serve.engine import ContinuousEngine
+    rec = TraceRecorder()
+    eng = ContinuousEngine(cfg, params, n_pages=10, decode_steps=1, trace=rec,
+                           sync_guard=True, **{**kw, "page_size": 256})
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = _serve_continuous(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    iters, chunks = eng.decode_dispatches, rec.count("PREFILL_CHUNK")
+    sched = eng.scheduler
+    n_layers = cfg.n_layers
+    expect = {"paged_flash_decode": n_layers * iters,
+              "paged_flash_prefill": n_layers * chunks,
+              "rmmec_matmul": 7 * n_layers * (iters + chunks),
+              "flash_decode": 0, "dequant": 0, "quire_dot": 0}
+    log(f"[cont] page 256, K=1: wall {wall:.2f} s, {iters} iterations, "
+        f"{chunks} prefill chunks, {sched.preemption_count} preemptions "
+        f"(requests {list(sched.preempted_log)}), {sched.prefix.hits} prefix "
+        f"hits; launches {launches}, expected {expect}")
+    for name, n in expect.items():
+        if launches[name] != n:
+            fails.append(f"continuous page 256: {name} launched "
+                         f"{launches[name]} times, expected {n}")
+    preempted = set(want_stats["preempted"]) | set(sched.preempted_log)
+    differ = [i for i in want if not np.array_equal(want[i], out[i])]
+    for i in differ:
+        cause = ("preempted (page 128: %s, page 256: %s)" % (
+            i in want_stats["preempted"], i in sched.preempted_log)
+            if i in preempted else "neither run preempted it")
+        log(f"[cont] page 256 vs page 128, request {i}: tokens differ; "
+            f"{cause}")
+    bad = [i for i in differ if i not in preempted]
+    log(f"[cont] page 256 == page 128 tokens for the {len(reqs) - len(preempted)}"
+        f" requests neither run preempted: {not bad} ({len(differ)} of "
+        f"{len(reqs)} differ in all)")
+    if bad:
+        fails.append(f"continuous page 256: tokens differ from page 128 for "
+                     f"requests {bad}, which neither run preempted")
 
 
 def profile_continuous(cfg, params, kw, reqs, warm_steps: int = 4,
@@ -1152,6 +1340,30 @@ def phase_continuous_parity(fails) -> None:
             fails.append(f"continuous parity: {what} tokens differ")
     if eng_on.scheduler.prefix.hits < 1:
         fails.append("continuous parity: no prefix hit")
+    # the CLI's own page choice: --prefill-chunk 256 without --page-size
+    # serves on 256-slot pages
+    from repro_torch.kernels.flash_decode import paged_flash_decode
+    from repro_torch.launch import serve
+    argv, buf = sys.argv, io.StringIO()
+    paged_flash_decode.launches = 0
+    try:
+        sys.argv = ["serve", "--reduced", "--continuous", "--batch", "2",
+                    "--prompt-len", "12", "--steps", "4", "--n-pages", "6",
+                    "--prefill-chunk", "256"]
+        with contextlib.redirect_stdout(buf):
+            serve.main()
+    finally:
+        sys.argv = argv
+    text = buf.getvalue()
+    pool_line = next((ln for ln in text.splitlines()
+                      if ln.startswith("pool:")), "")
+    ok = "served 4 requests" in text and "x 256 slots" in pool_line \
+        and "on cuda" in text and paged_flash_decode.launches > 0
+    log(f"[cparity] CLI --continuous --prefill-chunk 256 on the card: "
+        f"{pool_line!r}, paged_flash_decode launches "
+        f"{paged_flash_decode.launches}: {'ok' if ok else 'MISS'}")
+    if not ok:
+        fails.append(f"continuous CLI at page 256: {text[-400:]!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -1250,6 +1462,9 @@ def phase_engine_kernels(summary, fails) -> None:
                 summary["dequant"] = dict(
                     max_abs_err=max_err, ms=ms, plain_ms=plain,
                     library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            elif rnd == 2:
+                summary["dequant"].update(ms_ffn=ms, plain_ms_ffn=plain,
+                                          bound_ms_ffn=b_ms)
 
     rng = np.random.default_rng(6)
     a = rng.integers(0, 256, (64, 1024))
@@ -1279,9 +1494,12 @@ def phase_engine_kernels(summary, fails) -> None:
         log(f"[quire] time B={bsz} K={k}: kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}); library: none, "
             f"{NO_LIBRARY}")
+        if bsz == 64:
+            small = dict(ms_64x1024=ms, plain_ms_64x1024=plain,
+                         bound_ms_64x1024=b_ms)
     summary["quire_dot"] = dict(   # the last: 4096 x 4096
         max_abs_err=q_err, ms=ms, plain_ms=plain, library_ms=None,
-        bound_ms=b_ms, bound_by=b_by)
+        bound_ms=b_ms, bound_by=b_by, **small)
 
 
 # ---------------------------------------------------------------------------
@@ -1394,6 +1612,9 @@ def main() -> int:
         if name == "rmmec_matmul":   # the prefill shapes beside decode's
             kernels[-1].update({key: s[key] for key in (
                 "ms_m256", "ms_m1024", "library_ms_m1024", "bound_ms_m1024")})
+        elif name in ("dequant", "quire_dot"):   # the second timed shape
+            kernels[-1].update({key: v for key, v in s.items()
+                                if key.startswith(("ms_", "bound_ms_"))})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

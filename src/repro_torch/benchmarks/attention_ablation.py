@@ -26,7 +26,7 @@ from ..kernels import _build
 from ..kernels import flash_decode as fd
 
 OUT_DIR = os.path.join(os.path.dirname(_build.BUILD_DIR), "attention_ablation")
-TEAMS = "  static constexpr int TEAMS = DH == 128 ? 1 : 2;"
+TEAMS = "  static constexpr int TEAMS = DH >= 128 ? 1 : 2;"
 MMA = """  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
@@ -40,13 +40,14 @@ VARIANTS = {
     "no_exp": [("const float p = expf(sc[j][e] - m[e / 2]);",
                 "const float p = sc[j][e] - m[e / 2];")],
     "no_dequant": [
-        ("    dequant_page<DH, NT>(s, s.stage + (t % 2) * sbytes, pg, Kh, h, Gs);",
-         ""),
-        ("  dequant_page<DH, TEAM>(s, s.stage, FULL ? MAXP : page, Kh, h, Gs);", "")],
+        ("      dequant_page<DH, NT>(s, s.stage + (t % 2) * sbytes, pg, Kh, h, Gs);",
+         "      ;"),
+        ("    dequant_page<DH, TEAM>(s, s.stage, FULL ? MAXS : page, Kh, h, Gs);",
+         "    ;")],
     "one_q_term": [("  return (all & 2) ? 3 : (all & 1) ? 2 : 1;", "  return 1;")],
-    "generic_width": [("  if (page == MAXP)\n", "  if (false)\n")],
+    "generic_width": [("if (page == max_sub(W))", "if (false)")],
     "prefill_teams_1": [(TEAMS, "  static constexpr int TEAMS = 1;")],
-    "prefill_teams_4": [(TEAMS, "  static constexpr int TEAMS = DH == 128 ? 2 : 4;")],
+    "prefill_teams_4": [(TEAMS, "  static constexpr int TEAMS = DH >= 128 ? 2 : 4;")],
 }
 
 

@@ -59,7 +59,7 @@
 //     writes the page partial of the G rows to scratch; a second kernel in
 //     the same entry folds each (b, kv-head)'s partials in page order and
 //     divides.  Prefill keeps the page: one block per (b, kv-head, tile of
-//     32 rows, two teams; 16 rows for Dh = 128), heaviest tile first; the
+//     32 rows, two teams; 16 rows at widths 128 and 256), heaviest tile first; the
 //     block dequantizes each live page once into shared memory, every team
 //     takes its partials from that copy and folds them in registers, and
 //     the next page's codes arrive by cp.async (16 bytes a thread) while
@@ -75,7 +75,30 @@
 // term that is zero in all its rows (q from bf16 activations: mid = lo =
 // 0), which changes no bit.  No TF32, no bf16 rounding of q or p.
 //
-// Limits: Dh in {32, 64, 128}; a page (blk) of 1 .. 128 slots.
+// Sub-pages.  A pool (P, page, Kh, Dh) is, byte for byte, a pool
+// (P*s, page/s, Kh, Dh) of sub-pages for any divisor s of the page:
+// logical sub-page u of row b is pool sub-page table[b, u / s] * s + u % s
+// (sub_page).  The kernels walk sub-pages of `page` = sub slots and take
+// s (`nsub`) and the row's sub-page count NP = s * the table's columns.
+// The wrapper takes sub as the largest divisor of the page that fits a
+// kernel: at most 128 slots (MAXP), or 64 at a head width above 128
+// (MAXP_WIDE: a 128-slot sub-page at Dh = 256 would need ~300 KB of
+// shared memory in the prefill, smem_bytes).  Sub-page partials fold in
+// order like page partials, so decode at page 256 gives, bit for bit,
+// decode at page 128 (or over a contiguous cache at blk 128) over the same
+// slots.  A prime page above 128 slots (131) walks 1-slot sub-pages: slow,
+// and right.  s = 1 is the page itself.
+//
+// Head widths.  The kernels are instantiated at widths 32, 64, 128 and
+// 256; any other Dh <= 256 runs on the next width (40 on 64, 112 on 128):
+// the q terms and the staged K and V hold zeros past Dh, which change no
+// sum, and only Dh columns are written.  A Dh that is not a multiple of 16
+// stages its codes with plain loads, and a 16-column chunk finds its scale
+// groups of Dh / Gs columns with one division.  These are the NARROW
+// instantiations; a head of the full width compiles to the kernels as
+// they were.
+//
+// Limits: Dh in 1 .. 256; a page of any size >= 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,17 +116,26 @@ using bf16 = __nv_bfloat16;
 constexpr int TEAM = 128;              // threads of a team: 4 warps, 16 rows
 constexpr int TEAM_WARPS = TEAM / 32;
 constexpr int ROWS = 16;               // query rows of a team (the MMA's M)
-constexpr int MAXP = 128;              // most slots of a page
-constexpr int LDP = MAXP + 8;          // row stride of the shared p terms
+constexpr int MAXP = 128;              // most slots of a sub-page
+constexpr int MAXP_WIDE = 64;          // most slots of a sub-page at width 256
 constexpr int LUT_BYTES = 512;         // the posit table: 256 bf16
 constexpr float NEG = -1e30f;
 
-// Teams of a prefill block: two (32-row tiles), one at Dh = 128.  Two
-// measured faster than four and than one at qwen2-0.5b's shapes (more
+// The instantiated width a head of Dh columns runs on.
+__host__ __device__ constexpr int width_of(int Dh) {
+  return Dh <= 32 ? 32 : Dh <= 64 ? 64 : Dh <= 128 ? 128 : 256;
+}
+// Most slots of a sub-page at width DH, and the row stride of a team's
+// shared p terms (that many slots plus 8).
+__host__ __device__ constexpr int max_sub(int DH) { return DH <= 128 ? MAXP : MAXP_WIDE; }
+__host__ __device__ constexpr int ldp(int DH) { return max_sub(DH) + 8; }
+
+// Teams of a prefill block: two (32-row tiles), one at widths 128 and 256.
+// Two measured faster than four and than one at qwen2-0.5b's shapes (more
 // blocks on the card against fewer dequantized copies of each page).
 template <int DH>
 struct Prefill {
-  static constexpr int TEAMS = DH == 128 ? 1 : 2;
+  static constexpr int TEAMS = DH >= 128 ? 1 : 2;
   static constexpr int THREADS = TEAMS * TEAM;
   static constexpr int TILE = TEAMS * ROWS;
 };
@@ -124,7 +156,7 @@ __host__ __device__ inline int stage_bytes(int page, int Kh, int Gs, int Dh) {
   return 2 * page * Dh + 2 * align16(scale_block_bytes(page, Kh, Gs));
 }
 
-// A team's own: the q terms (3, 16, Dh + 8) bf16, the p terms (3, 16, LDP)
+// A team's own: the q terms (3, 16, Dh + 8) bf16, the p terms (3, 16, ldp(Dh))
 // bf16, and floats for the per-warp row maxima (4, 16), row sums (4, 16)
 // and the warps' nonzero-term flags.
 struct Team {
@@ -133,7 +165,7 @@ struct Team {
   float* red;
 };
 __host__ __device__ inline int team_bytes(int Dh) {
-  return 3 * ROWS * (Dh + 8) * 2 + 3 * ROWS * LDP * 2 + (2 * TEAM_WARPS * ROWS + 16) * 4;
+  return 3 * ROWS * (Dh + 8) * 2 + 3 * ROWS * ldp(Dh) * 2 + (2 * TEAM_WARPS * ROWS + 16) * 4;
 }
 
 struct Smem {
@@ -167,7 +199,7 @@ __device__ __forceinline__ Team team_of(const Smem& s, int team, int Dh) {
   Team tm;
   tm.qs = reinterpret_cast<bf16*>(base);
   tm.ps = tm.qs + 3 * ROWS * (Dh + 8);
-  tm.red = reinterpret_cast<float*>(tm.ps + 3 * ROWS * LDP);
+  tm.red = reinterpret_cast<float*>(tm.ps + 3 * ROWS * ldp(Dh));
   return tm;
 }
 
@@ -215,31 +247,66 @@ __device__ __forceinline__ void store_terms(bf16* dst, int plane, float x, float
 // one page: stage, dequantize (every thread of the block)
 // ---------------------------------------------------------------------------
 
+// A narrower head's code rows (dh bytes each) into `st` at a 16-byte
+// stride, with plain loads of T.
+template <class T, int Dh, int NT>
+__device__ __forceinline__ void stage_rows(uint8_t* st, const uint8_t* __restrict__ kc,
+                                           const uint8_t* __restrict__ vc, size_t pid,
+                                           int page, int Kh, int h, int dh) {
+  const int per_row = dh / static_cast<int>(sizeof(T)), ds = align16(dh), n = page * per_row;
+  for (int i = threadIdx.x; i < 2 * n; i += NT) {
+    const int which = i >= n, c = i - which * n, j = c / per_row, e = c % per_row;
+    const uint8_t* src = (which ? vc : kc) + ((pid * page + j) * Kh + h) * dh;
+    *reinterpret_cast<T*>(st + which * page * Dh + j * ds + e * sizeof(T)) =
+        reinterpret_cast<const T*>(src)[e];
+  }
+}
+
 // Starts the copy of pool page `pid`'s codes for kv head h and its scale
 // blocks into `st` and commits it: cp.async of 16 bytes a thread per step
 // where the source allows (a pool whose codes or scale blocks do not start
 // on 16-byte boundaries, as small pages' scale blocks of page*Kh*Gs*2
 // bytes may not, takes plain loads instead, which the same barrier
-// publishes).
-template <int Dh, int NT>
+// publishes).  A head narrower than the width (dh < Dh) stages its rows of
+// dh codes at a stride of align16(dh) bytes, by cp.async when dh is a
+// multiple of 16, else with plain 8-, 4- or 1-byte loads; the bytes past dh
+// are never read as codes (dequant_narrow writes zeros there).
+template <int Dh, int NT, bool NARROW>
 __device__ __forceinline__ void stage_page(uint8_t* st, const uint8_t* __restrict__ kc,
                                            const bf16* __restrict__ ks,
                                            const uint8_t* __restrict__ vc,
                                            const bf16* __restrict__ vs, size_t pid,
-                                           int page, int Kh, int h, int Gs) {
-  constexpr int cps = Dh / 16;
-  const int nc = page * cps;
+                                           int page, int Kh, int h, int Gs, int dh) {
   const bool codes16 = ((reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc)) & 15) == 0;
-  for (int i = threadIdx.x; i < 2 * nc; i += NT) {
-    const int which = i >= nc, c = i - which * nc, j = c / cps, part = c % cps;
-    const uint8_t* src = (which ? vc : kc) + ((pid * page + j) * Kh + h) * Dh + part * 16;
-    uint8_t* dst = st + which * page * Dh + c * 16;
-    if (codes16) {
-      cp_async16(dst, src);
-    } else {
+  if constexpr (!NARROW) {
+    constexpr int cps = Dh / 16;
+    const int nc = page * cps;
+    for (int i = threadIdx.x; i < 2 * nc; i += NT) {
+      const int which = i >= nc, c = i - which * nc, j = c / cps, part = c % cps;
+      const uint8_t* src = (which ? vc : kc) + ((pid * page + j) * Kh + h) * Dh + part * 16;
+      uint8_t* dst = st + which * page * Dh + c * 16;
+      if (codes16) {
+        cp_async16(dst, src);
+      } else {
 #pragma unroll
-      for (int e = 0; e < 16; ++e) dst[e] = src[e];
+        for (int e = 0; e < 16; ++e) dst[e] = src[e];
+      }
     }
+  } else if (codes16 && dh % 16 == 0) {
+    const int cps = dh / 16, nc = page * cps;
+    for (int i = threadIdx.x; i < 2 * nc; i += NT) {
+      const int which = i >= nc, c = i - which * nc, j = c / cps, part = c % cps;
+      cp_async16(st + which * page * Dh + c * 16,
+                 (which ? vc : kc) + ((pid * page + j) * Kh + h) * dh + part * 16);
+    }
+  } else {  // plain loads of the widest unit dh and the pool's alignment allow
+    const uintptr_t a = reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc);
+    if (dh % 8 == 0 && a % 8 == 0)
+      stage_rows<uint2, Dh, NT>(st, kc, vc, pid, page, Kh, h, dh);
+    else if (dh % 4 == 0 && a % 4 == 0)
+      stage_rows<uint32_t, Dh, NT>(st, kc, vc, pid, page, Kh, h, dh);
+    else
+      stage_rows<uint8_t, Dh, NT>(st, kc, vc, pid, page, Kh, h, dh);
   }
   const int sb = scale_block_bytes(page, Kh, Gs);
   uint8_t* sdst = st + 2 * page * Dh;
@@ -264,7 +331,48 @@ __device__ __forceinline__ void stage_page(uint8_t* st, const uint8_t* __restric
 }
 
 // Staged codes -> exact bf16 K and V rows (the table value times the
-// scale; exact for power-of-two scales).
+// scale; exact for power-of-two scales).  dequant_narrow: the same for a
+// head narrower than the width (dh < Dh), zeros past dh.
+template <int Dh, int NT>
+__device__ __forceinline__ void dequant_narrow(const Smem& s, const uint8_t* st, int page,
+                                               int Kh, int h, int Gs, int dh) {
+  constexpr int cpr = Dh / 16, ld = Dh + 8;  // 16-column chunks of a padded row
+  const int nc = page * cpr, ds = align16(dh), gw = dh / Gs;  // gw: a scale group's columns
+  const int sb = align16(scale_block_bytes(page, Kh, Gs));
+  const bf16* ksc = reinterpret_cast<const bf16*>(st + 2 * page * Dh);
+  const bf16* vsc = reinterpret_cast<const bf16*>(st + 2 * page * Dh + sb);
+  for (int i = threadIdx.x; i < 2 * nc; i += NT) {
+    const int which = i >= nc, c = i - which * nc, j = c / cpr, d0 = (c % cpr) * 16;
+    uint32_t out[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+    if (d0 < dh) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(st + which * page * Dh + j * ds + d0);
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+      const bf16* sc = (which ? vsc : ksc) + (j * Kh + h) * Gs;
+      // the scale group of column d0 and where it ends: one division a chunk
+      int gi = d0 / gw, gend = (gi + 1) * gw;
+      float sv = __bfloat162float(sc[gi]);
+      float v[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int d = d0 + e;
+        if (d < dh && d >= gend) {
+          ++gi;
+          gend += gw;
+          sv = __bfloat162float(sc[gi]);
+        }
+        const uint32_t code = (w[e / 4] >> (8 * (e % 4))) & 0xffu;
+        v[e] = d < dh ? __bfloat162float(s.lut[code]) * sv : 0.0f;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        out[e] = pack2(__float2bfloat16_rn(v[2 * e]), __float2bfloat16_rn(v[2 * e + 1]));
+    }
+    uint4* dst = reinterpret_cast<uint4*>((which ? s.vp : s.kp) + j * ld + d0);
+    dst[0] = make_uint4(out[0], out[1], out[2], out[3]);
+    dst[1] = make_uint4(out[4], out[5], out[6], out[7]);
+  }
+}
+
 template <int Dh, int NT>
 __device__ __forceinline__ void dequant_page(const Smem& s, const uint8_t* st, int page,
                                              int Kh, int h, int Gs) {
@@ -312,19 +420,30 @@ __device__ __forceinline__ size_t row_index(int b, int h, int row, int C, int Kh
 // Splits the team's 16 rows row0 .. row0+15 (those below `rows`; the rest
 // zero) into the three bf16 terms in tm.qs; returns how many leading terms
 // are nonzero in some row (1, 2 or 3).  Every thread of the team calls it.
-template <int DH>
+// q rows hold dh columns; the terms of columns dh .. DH-1 are zero.
+template <int DH, bool NARROW>
 __device__ __forceinline__ int split_q(const Team& tm, int bar, const float* __restrict__ q,
                                        int b, int h, int row0, int rows, int C, int Kh,
-                                       int G) {
+                                       int G, int dh) {
   constexpr int LD = DH + 8, NV = ROWS * DH / 2 / TEAM;  // float2 loads per thread
   const int tid = threadIdx.x % TEAM;
   float2 x[NV];  // all loads first: one round trip, not NV
+  if constexpr (!NARROW) {
 #pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    const int i = tid + TEAM * k, r = i / (DH / 2), d = (i % (DH / 2)) * 2;
-    x[k] = row0 + r < rows ? *reinterpret_cast<const float2*>(
-                                 q + row_index(b, h, row0 + r, C, Kh, G) * DH + d)
-                           : make_float2(0.0f, 0.0f);
+    for (int k = 0; k < NV; ++k) {
+      const int i = tid + TEAM * k, r = i / (DH / 2), d = (i % (DH / 2)) * 2;
+      x[k] = row0 + r < rows ? *reinterpret_cast<const float2*>(
+                                   q + row_index(b, h, row0 + r, C, Kh, G) * DH + d)
+                             : make_float2(0.0f, 0.0f);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = tid + TEAM * k, r = i / (DH / 2), d = (i % (DH / 2)) * 2;
+      const float* src = q + row_index(b, h, row0 + r, C, Kh, G) * dh + d;
+      const bool live = row0 + r < rows;
+      x[k] = make_float2(live && d < dh ? src[0] : 0.0f, live && d + 1 < dh ? src[1] : 0.0f);
+    }
   }
   bool any_mid = false, any_lo = false;
 #pragma unroll
@@ -347,7 +466,7 @@ __device__ __forceinline__ int split_q(const Team& tm, int bar, const float* __r
 // the page partial and the fold: the single copy of the math
 // ---------------------------------------------------------------------------
 
-// A team's page partial over `width` slots (1 .. 128) at logical slots
+// A team's page partial over `width` slots (1 .. max_sub(DH)) at logical slots
 // kpos0 .. kpos0+width-1, for the 16 rows split in tm.qs.  S is computed in
 // tiles of 8 slots; a last tile that reaches past the page masks its extra
 // slots like dead ones (their K and V rows are the zeros of init_block).
@@ -356,7 +475,8 @@ __device__ __forceinline__ int split_q(const Team& tm, int bar, const float* __r
 // the MMA's C layout, acc[n][0..1] (row g) and acc[n][2..3] (row g+8) at
 // columns 8*(w*DH/32 + n) + 2*(L%4) + {0, 1}.  hz[i] is the row's horizon.
 // Every thread of the team calls it; it ends with the team met.  FULL:
-// width == MAXP, known when compiled, so the width tests fold away.
+// width == max_sub(DH), known when compiled, so the width tests fold away.
+// Warp w scores the tiles TPW*w .. TPW*w + TPW-1 of 8 slots.
 template <int DH, bool FULL>
 __device__ __forceinline__ void page_partial(const Smem& s, const Team& tm, int bar, int nq,
                                              int width, int kpos0, const int (&hz)[2],
@@ -364,9 +484,10 @@ __device__ __forceinline__ void page_partial(const Smem& s, const Team& tm, int 
                                              float (&m)[2], float (&l)[2],
                                              float (&acc)[DH / 32][4]) {
   constexpr int LD = DH + 8, NKS = DH / 16, NW = DH / 32;
+  constexpr int MAXS = max_sub(DH), LDP = ldp(DH), TPW = MAXS / 8 / TEAM_WARPS;
   const int lane = threadIdx.x % 32, t = lane % 4, g = lane / 4;
   const int w = (threadIdx.x / 32) % TEAM_WARPS;
-  const int ntile = FULL ? MAXP / 8 : (width + 7) / 8, n0 = 4 * w;  // this warp's S: n0 .. n0+3
+  const int ntile = FULL ? MAXS / 8 : (width + 7) / 8, n0 = TPW * w;  // this warp's S tiles
   const uint32_t qb = smem_addr(tm.qs), kb = smem_addr(s.kp), vb = smem_addr(s.vp),
                  pb = smem_addr(tm.ps);
   float* red_m = tm.red;
@@ -374,9 +495,9 @@ __device__ __forceinline__ void page_partial(const Smem& s, const Team& tm, int 
 
   // scores of this warp's slots: the nq terms of q in the order hi, mid,
   // lo, each over all k-steps (a runtime loop around straight-line MMAs)
-  float sc[4][4];
+  float sc[TPW][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+  for (int j = 0; j < TPW; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
 #pragma unroll 1
   for (int term = 0; term < nq; ++term) {
 #pragma unroll
@@ -384,7 +505,7 @@ __device__ __forceinline__ void page_partial(const Smem& s, const Team& tm, int 
       uint32_t a[4];
       ldmatrix_x4(a, qb + ((term * ROWS + lane % 16) * LD + ks * 16 + (lane / 16) * 8) * 2);
 #pragma unroll
-      for (int j = 0; j < 4; j += 2) {
+      for (int j = 0; j < TPW; j += 2) {
         const int n = n0 + j;
         if (n < ntile) {
           uint32_t b[4];
@@ -400,7 +521,7 @@ __device__ __forceinline__ void page_partial(const Smem& s, const Team& tm, int 
   // scale, softcap, mask; the rows' maxima over the page, in warp order
   float mw[2] = {NEG, NEG};
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < TPW; ++j) {
     if (n0 + j < ntile) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -432,7 +553,7 @@ __device__ __forceinline__ void page_partial(const Smem& s, const Team& tm, int 
   float lw[2] = {0.0f, 0.0f};
   bool unused_mid = false, unused_lo = false;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < TPW; ++j) {
     const int n = n0 + j;
     if (n < ntile) {
 #pragma unroll
@@ -469,7 +590,7 @@ __device__ __forceinline__ void page_partial(const Smem& s, const Team& tm, int 
   for (int n = 0; n < NW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
   const int vrow = ((lane / 8) % 2) * 8 + lane % 8;
 #pragma unroll
-  for (int ks = 0; ks < MAXP / 16; ++ks) {
+  for (int ks = 0; ks < MAXS / 16; ++ks) {
     if (2 * ks < ntile) {
       uint32_t pa[3][4];
 #pragma unroll
@@ -521,11 +642,18 @@ __device__ __forceinline__ float fold_value(float acc, float acc_p, FoldWeights 
 // decode: page partials to scratch, then the ordered fold
 // ---------------------------------------------------------------------------
 
-// Scratch of the decode: acc (B, Kh, NP, G, Dh) then (m, l) (B, Kh, NP, G, 2).
+// Scratch of the decode: acc (B, Kh, NP, G, DH) then (m, l) (B, Kh, NP, G, 2),
+// NP the row's sub-pages, DH the width.
 struct Partials {
   float* acc;
   float* ml;
 };
+
+// The pool sub-page of logical sub-page t of a page-table row (s sub-pages
+// a page).
+__device__ __forceinline__ size_t sub_page(const int* __restrict__ row, int t, int s) {
+  return s == 1 ? (size_t)row[t] : (size_t)row[t / s] * s + t % s;
+}
 
 __device__ __forceinline__ void live_pages(int b, const int* positions, const int* pad,
                                            int pos, int page, int NP, int& hz, int& pad_lo,
@@ -536,37 +664,44 @@ __device__ __forceinline__ void live_pages(int b, const int* positions, const in
   t1 = min(hz / page, NP - 1);
 }
 
-// grid (NP, Kh, B), one team: block (t, h, b) takes logical page t of row b.
-template <int DH, bool FULL>
+// grid (NP, Kh, B), one team: block (t, h, b) takes logical sub-page t of
+// row b (`page` slots, `nsub` of them a page of the table).
+template <int DH, bool FULL, bool NARROW>
 __global__ void __launch_bounds__(TEAM)
 decode_page_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kc,
                    const bf16* __restrict__ ks, const uint8_t* __restrict__ vc,
                    const bf16* __restrict__ vs, const int* __restrict__ page_table,
                    const int* __restrict__ positions, const int* __restrict__ pad,
-                   Partials part, int NP, int page, int Kh, int G, int Gs, int pos,
-                   float softcap, float scale) {
+                   Partials part, int NP, int page, int nsub, int Kh, int G, int Gs, int dh,
+                   int pos, float softcap, float scale) {
+  if constexpr (!NARROW) dh = DH;
   extern __shared__ __align__(16) uint8_t sm[];
+  constexpr int MAXS = max_sub(DH);
   const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const Smem s = carve(sm, page, Kh, Gs, DH, 1);
   const Team tm = team_of(s, 0, DH);
   // the page id, the position and the first rows of q load in one round trip
-  const size_t pid =
-      page_table != nullptr ? (size_t)page_table[(size_t)b * NP + t] : (size_t)b * NP + t;
+  const size_t pid = page_table != nullptr
+                         ? sub_page(page_table + (size_t)b * (nsub == 1 ? NP : NP / nsub), t, nsub)
+                         : (size_t)b * NP + t;
   int hz, pad_lo, t0, t1;
   live_pages(b, positions, pad, pos, page, NP, hz, pad_lo, t0, t1);
-  int nq = split_q<DH>(tm, 1, q, b, h, 0, G, 1, Kh, G);
+  int nq = split_q<DH, NARROW>(tm, 1, q, b, h, 0, G, 1, Kh, G, dh);
   if (t < t0 || t > t1) return;
-  stage_page<DH, TEAM>(s.stage, kc, ks, vc, vs, pid, FULL ? MAXP : page, Kh, h, Gs);
+  stage_page<DH, TEAM, NARROW>(s.stage, kc, ks, vc, vs, pid, FULL ? MAXS : page, Kh, h, Gs, dh);
   init_block(s, page, DH);
   const int lane = threadIdx.x % 32, g = lane / 4, w = threadIdx.x / 32;
   cp_async_wait_all();
   __syncthreads();
-  dequant_page<DH, TEAM>(s, s.stage, FULL ? MAXP : page, Kh, h, Gs);
+  if constexpr (NARROW)
+    dequant_narrow<DH, TEAM>(s, s.stage, page, Kh, h, Gs, dh);
+  else
+    dequant_page<DH, TEAM>(s, s.stage, FULL ? MAXS : page, Kh, h, Gs);
   __syncthreads();
   const int hzr[2] = {hz, hz};
   const size_t slot = ((size_t)b * Kh + h) * NP + t;
   for (int row0 = 0; row0 < G; row0 += ROWS) {
-    if (row0 > 0) nq = split_q<DH>(tm, 1, q, b, h, row0, G, 1, Kh, G);
+    if (row0 > 0) nq = split_q<DH, NARROW>(tm, 1, q, b, h, row0, G, 1, Kh, G, dh);
     float m[2], l[2], acc[DH / 32][4];
     page_partial<DH, FULL>(s, tm, 1, nq, page, t * page, hzr, pad_lo, softcap, scale, m, l,
                            acc);
@@ -592,11 +727,12 @@ constexpr int FOLD_THREADS = 128;
 constexpr int FOLD_BATCH = 8;  // pages whose partials load in one round trip
 
 // grid (ceil(G*Dh/128), Kh, B), one output element a thread: folds the live
-// pages' partials of (b, h) in page order and divides.
+// sub-pages' partials of (b, h) in order and divides.  Partials are DH
+// (the width) floats a row, outputs Dh.
 __global__ void __launch_bounds__(FOLD_THREADS)
 decode_fold_kernel(Partials part, const int* __restrict__ positions,
                    const int* __restrict__ pad, float* __restrict__ out, int NP, int page,
-                   int Kh, int G, int Dh, int pos) {
+                   int Kh, int G, int Dh, int DH, int pos) {
   const int i = blockIdx.x * FOLD_THREADS + threadIdx.x, h = blockIdx.y, b = blockIdx.z;
   if (i >= G * Dh) return;
   int hz, pad_lo, t0, t1;
@@ -612,7 +748,7 @@ decode_fold_kernel(Partials part, const int* __restrict__ positions,
       if (t + k <= t1) {
         const size_t idx = row + (size_t)(t + k) * G;
         ml[k] = reinterpret_cast<const float2*>(part.ml)[idx];
-        a[k] = part.acc[idx * Dh + d];
+        a[k] = part.acc[idx * DH + d];
       }
     }
 #pragma unroll
@@ -630,26 +766,29 @@ decode_fold_kernel(Partials part, const int* __restrict__ positions,
 // ---------------------------------------------------------------------------
 
 // grid (tiles, Kh, B), tile = tiles - 1 - blockIdx.x (the heaviest first);
-// team k of the block holds rows tile*TILE + 16k .. +15.
-template <int DH, bool FULL>
+// team k of the block holds rows tile*TILE + 16k .. +15.  It walks the
+// row's NP sub-pages of `page` slots (`nsub` a page of the table).
+template <int DH, bool FULL, bool NARROW>
 __global__ void __launch_bounds__(Prefill<DH>::THREADS)
 prefill_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kc,
                const bf16* __restrict__ ks, const uint8_t* __restrict__ vc,
                const bf16* __restrict__ vs, const int* __restrict__ page_table,
                const int* __restrict__ start, float* __restrict__ out, int C, int NP,
-               int page, int Kh, int G, int Gs, float softcap, float scale) {
+               int page, int nsub, int Kh, int G, int Gs, int dh, float softcap,
+               float scale) {
+  if constexpr (!NARROW) dh = DH;
   constexpr int TILE = Prefill<DH>::TILE, NT = Prefill<DH>::THREADS;
   extern __shared__ __align__(16) uint8_t sm[];
-  const int pg = FULL ? MAXP : page;  // known when compiled for full pages
+  const int pg = FULL ? max_sub(DH) : page;  // known when compiled for full sub-pages
   const int tile = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const Smem s = carve(sm, page, Kh, Gs, DH, 2);
   const int sbytes = stage_bytes(page, Kh, Gs, DH);
   const int rows = C * G, st = start[b];
   const int last = st + (min((tile + 1) * TILE, rows) - 1) / G;  // the tile's last horizon
   const int npages = min(last / page, NP - 1) + 1;
-  const int* pt = page_table + (size_t)b * NP;
-  stage_page<DH, NT>(s.stage, kc, ks, vc, vs, (size_t)pt[0], pg, Kh, h, Gs);
-  int next_pid = npages > 1 ? pt[1] : 0;  // loaded a page ahead of its use
+  const int* pt = page_table + (size_t)b * (nsub == 1 ? NP : NP / nsub);
+  stage_page<DH, NT, NARROW>(s.stage, kc, ks, vc, vs, sub_page(pt, 0, nsub), pg, Kh, h, Gs, dh);
+  size_t next_pid = npages > 1 ? sub_page(pt, 1, nsub) : 0;  // loaded a page ahead of its use
   init_block(s, page, DH);
 
   const int team = threadIdx.x / TEAM, bar = 1 + team;
@@ -658,7 +797,7 @@ prefill_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kc,
   const int row0 = tile * TILE + team * ROWS;
   const bool active = row0 < rows;
   const int tlast = st + (min(row0 + ROWS, rows) - 1) / G;  // the team's last horizon
-  const int nq = active ? split_q<DH>(tm, bar, q, b, h, row0, rows, C, Kh, G) : 0;
+  const int nq = active ? split_q<DH, NARROW>(tm, bar, q, b, h, row0, rows, C, Kh, G, dh) : 0;
   const int hz[2] = {st + (row0 + g) / G, st + (row0 + g + 8) / G};
 
   float M[2] = {NEG, NEG}, L[2] = {0.0f, 0.0f}, acc[DH / 32][4];
@@ -669,11 +808,14 @@ prefill_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kc,
     cp_async_wait_all();
     __syncthreads();  // page t staged; every team is done with page t-1
     if (t + 1 < npages) {
-      stage_page<DH, NT>(s.stage + ((t + 1) % 2) * sbytes, kc, ks, vc, vs, (size_t)next_pid,
-                         pg, Kh, h, Gs);
-      if (t + 2 < npages) next_pid = pt[t + 2];
+      stage_page<DH, NT, NARROW>(s.stage + ((t + 1) % 2) * sbytes, kc, ks, vc, vs, next_pid,
+                                 pg, Kh, h, Gs, dh);
+      if (t + 2 < npages) next_pid = sub_page(pt, t + 2, nsub);
     }
-    dequant_page<DH, NT>(s, s.stage + (t % 2) * sbytes, pg, Kh, h, Gs);
+    if constexpr (NARROW)
+      dequant_narrow<DH, NT>(s, s.stage + (t % 2) * sbytes, page, Kh, h, Gs, dh);
+    else
+      dequant_page<DH, NT>(s, s.stage + (t % 2) * sbytes, pg, Kh, h, Gs);
     __syncthreads();
     // a page wholly past the team's rows would fold with weight 0: skip it
     if (!active || t * page > tlast) continue;
@@ -695,11 +837,18 @@ prefill_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kc,
   for (int i = 0; i < 2; ++i) {
     const int r = row0 + g + 8 * i;
     if (r >= rows) continue;
-    float* o = out + row_index(b, h, r, C, Kh, G) * DH + w * DH / 4 + 2 * (lane % 4);
+    const int d = w * DH / 4 + 2 * (lane % 4);
+    float* o = out + row_index(b, h, r, C, Kh, G) * dh + d;
 #pragma unroll
-    for (int n = 0; n < DH / 32; ++n)
-      *reinterpret_cast<float2*>(o + n * 8) =
-          make_float2(__fdiv_rn(acc[n][2 * i], L[i]), __fdiv_rn(acc[n][2 * i + 1], L[i]));
+    for (int n = 0; n < DH / 32; ++n) {
+      const float x = __fdiv_rn(acc[n][2 * i], L[i]), y = __fdiv_rn(acc[n][2 * i + 1], L[i]);
+      if constexpr (!NARROW) {
+        *reinterpret_cast<float2*>(o + n * 8) = make_float2(x, y);
+      } else {  // a narrower head: its own columns only, one float at a time
+        if (d + n * 8 < dh) o[n * 8] = x;
+        if (d + n * 8 + 1 < dh) o[n * 8 + 1] = y;
+      }
+    }
   }
 }
 
@@ -716,93 +865,112 @@ int allow_smem(int smem) {
   return static_cast<int>(err);
 }
 
-bool supported(int Dh, int page) {
-  return (Dh == 32 || Dh == 64 || Dh == 128) && page > 0 && page <= MAXP;
+// Dh in 1 .. 256, a sub-page of 1 .. max_sub(width) slots, nsub of them a
+// page of the table (NP, the row's sub-pages, a multiple of nsub).
+bool supported(int Dh, int page, int nsub, int NP) {
+  return Dh >= 1 && Dh <= 256 && page >= 1 && page <= max_sub(width_of(Dh)) && nsub >= 1 &&
+         NP % nsub == 0;
 }
 
-template <int DH, bool FULL>
+template <int DH, bool FULL, bool NARROW>
 int launch_decode(const void* q, const void* kc, const void* ks, const void* vc,
                   const void* vs, const void* page_table, const void* positions,
-                  const void* pad, void* scratch, void* out, int B, int NP, int page, int Kh,
-                  int G, int Gs, int pos, float softcap, float scale, cudaStream_t stream) {
+                  const void* pad, void* scratch, void* out, int B, int NP, int page, int nsub,
+                  int Kh, int G, int Dh, int Gs, int pos, float softcap, float scale,
+                  cudaStream_t stream) {
   const int smem = smem_bytes(page, Kh, Gs, DH, 1, 1);
-  if (const int err = allow_smem<decode_page_kernel<DH, FULL>>(smem)) return err;
+  if (const int err = allow_smem<decode_page_kernel<DH, FULL, NARROW>>(smem)) return err;
   float* acc = static_cast<float*>(scratch);
   const Partials part{acc, acc + (size_t)B * Kh * NP * G * DH};
-  decode_page_kernel<DH, FULL><<<dim3(NP, Kh, B), TEAM, smem, stream>>>(
+  decode_page_kernel<DH, FULL, NARROW><<<dim3(NP, Kh, B), TEAM, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const uint8_t*>(kc),
       static_cast<const bf16*>(ks), static_cast<const uint8_t*>(vc),
       static_cast<const bf16*>(vs), static_cast<const int*>(page_table),
-      static_cast<const int*>(positions), static_cast<const int*>(pad), part, NP, page, Kh,
-      G, Gs, pos, softcap, scale);
+      static_cast<const int*>(positions), static_cast<const int*>(pad), part, NP, page, nsub,
+      Kh, G, Gs, Dh, pos, softcap, scale);
   if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  const dim3 grid((G * DH + FOLD_THREADS - 1) / FOLD_THREADS, Kh, B);
+  const dim3 grid((G * Dh + FOLD_THREADS - 1) / FOLD_THREADS, Kh, B);
   decode_fold_kernel<<<grid, FOLD_THREADS, 0, stream>>>(
       part, static_cast<const int*>(positions), static_cast<const int*>(pad),
-      static_cast<float*>(out), NP, page, Kh, G, DH, pos);
+      static_cast<float*>(out), NP, page, Kh, G, Dh, DH, pos);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH, bool FULL>
+template <int DH, bool FULL, bool NARROW>
 int launch_prefill(const void* q, const void* kc, const void* ks, const void* vc,
                    const void* vs, const void* page_table, const void* start, void* out,
-                   int B, int C, int NP, int page, int Kh, int G, int Gs, float softcap,
-                   float scale, cudaStream_t stream) {
+                   int B, int C, int NP, int page, int nsub, int Kh, int G, int Dh, int Gs,
+                   float softcap, float scale, cudaStream_t stream) {
   using P = Prefill<DH>;
   const int smem = smem_bytes(page, Kh, Gs, DH, 2, P::TEAMS);
-  if (const int err = allow_smem<prefill_kernel<DH, FULL>>(smem)) return err;
+  if (const int err = allow_smem<prefill_kernel<DH, FULL, NARROW>>(smem)) return err;
   const dim3 grid((C * G + P::TILE - 1) / P::TILE, Kh, B);
-  prefill_kernel<DH, FULL><<<grid, P::THREADS, smem, stream>>>(
+  prefill_kernel<DH, FULL, NARROW><<<grid, P::THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const uint8_t*>(kc),
       static_cast<const bf16*>(ks), static_cast<const uint8_t*>(vc),
       static_cast<const bf16*>(vs), static_cast<const int*>(page_table),
-      static_cast<const int*>(start), static_cast<float*>(out), C, NP, page, Kh, G, Gs,
-      softcap, scale);
+      static_cast<const int*>(start), static_cast<float*>(out), C, NP, page, nsub, Kh, G, Gs,
+      Dh, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Each entry point returns cudaGetLastError() after its launches, or
-// cudaErrorInvalidValue for a Dh or page it does not take.
+// cudaErrorInvalidValue for a shape it does not take (supported).
+
+// The instantiations: at each width 32, 64, 128, 256, a head of that
+// width on full sub-pages (page == max_sub(width), known when compiled)
+// and on any other, and a narrower head (on any sub-page: the full-page
+// path only drops tests that hold anyway).
+#define XRNPE_DISPATCH(LAUNCH)                                                        \
+  const int W = width_of(Dh);                                                         \
+  if (Dh != W)                                                                        \
+    return W == 32 ? LAUNCH(32, false, true)                                          \
+           : W == 64 ? LAUNCH(64, false, true)                                        \
+           : W == 128 ? LAUNCH(128, false, true) : LAUNCH(256, false, true);          \
+  if (page == max_sub(W))                                                             \
+    return W == 32 ? LAUNCH(32, true, false)                                          \
+           : W == 64 ? LAUNCH(64, true, false)                                        \
+           : W == 128 ? LAUNCH(128, true, false) : LAUNCH(256, true, false);          \
+  return W == 32 ? LAUNCH(32, false, false)                                           \
+         : W == 64 ? LAUNCH(64, false, false)                                         \
+         : W == 128 ? LAUNCH(128, false, false) : LAUNCH(256, false, false)
 
 // One-token decode over a pool, or over a contiguous cache (B, NP*page, Kh,
-// Dh) when `page_table` is null.  `positions` (B,) may be null: every row
-// at `pos`.  `pad` (B,) may be null: no left pad.  `scratch` holds
-// B*Kh*NP*G*(Dh + 2) floats.  Two kernels: the page partials, the fold.
+// Dh) when `page_table` is null.  `page` is the sub-page the kernels walk,
+// `nsub` of them a page of the table (B, NP / nsub); NP counts a row's
+// sub-pages.  `positions` (B,) may be null: every row at `pos`.  `pad`
+// (B,) may be null: no left pad.  `scratch` holds B*Kh*NP*G*(width(Dh) + 2)
+// floats.  Two kernels: the sub-page partials, the fold.
 extern "C" int paged_flash_decode(const void* q, const void* k_codes, const void* k_scale,
                                   const void* v_codes, const void* v_scale,
                                   const void* page_table, const void* positions,
                                   const void* pad, void* scratch, void* out, int B, int NP,
-                                  int page, int Kh, int G, int Dh, int Gs, int pos,
+                                  int page, int nsub, int Kh, int G, int Dh, int Gs, int pos,
                                   float softcap, float scale, void* stream) {
-  if (!supported(Dh, page)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!supported(Dh, page, nsub, NP)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define XRNPE_DECODE(DH, FULL)                                                            \
-  launch_decode<DH, FULL>(q, k_codes, k_scale, v_codes, v_scale, page_table, positions,  \
-                          pad, scratch, out, B, NP, page, Kh, G, Gs, pos, softcap, scale, st)
-  if (page == MAXP)
-    return Dh == 32 ? XRNPE_DECODE(32, true)
-                    : Dh == 64 ? XRNPE_DECODE(64, true) : XRNPE_DECODE(128, true);
-  return Dh == 32 ? XRNPE_DECODE(32, false)
-                  : Dh == 64 ? XRNPE_DECODE(64, false) : XRNPE_DECODE(128, false);
+#define XRNPE_DECODE(DH, FULL, NARROW)                                                     \
+  launch_decode<DH, FULL, NARROW>(q, k_codes, k_scale, v_codes, v_scale, page_table, positions,   \
+                          pad, scratch, out, B, NP, page, nsub, Kh, G, Dh, Gs, pos, softcap, \
+                          scale, st)
+  XRNPE_DISPATCH(XRNPE_DECODE);
 #undef XRNPE_DECODE
 }
 
+// Chunk prefill over a pool: q (B, C, Kh, G, Dh), page table (B, NP / nsub),
+// sub-pages as in paged_flash_decode.
 extern "C" int paged_flash_prefill(const void* q, const void* k_codes, const void* k_scale,
                                    const void* v_codes, const void* v_scale,
                                    const void* page_table, const void* start, void* out,
-                                   int B, int C, int NP, int page, int Kh, int G, int Dh,
-                                   int Gs, float softcap, float scale, void* stream) {
-  if (!supported(Dh, page)) return static_cast<int>(cudaErrorInvalidValue);
+                                   int B, int C, int NP, int page, int nsub, int Kh, int G,
+                                   int Dh, int Gs, float softcap, float scale, void* stream) {
+  if (!supported(Dh, page, nsub, NP)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define XRNPE_PREFILL(DH, FULL)                                                           \
-  launch_prefill<DH, FULL>(q, k_codes, k_scale, v_codes, v_scale, page_table, start, out, \
-                           B, C, NP, page, Kh, G, Gs, softcap, scale, st)
-  if (page == MAXP)
-    return Dh == 32 ? XRNPE_PREFILL(32, true)
-                    : Dh == 64 ? XRNPE_PREFILL(64, true) : XRNPE_PREFILL(128, true);
-  return Dh == 32 ? XRNPE_PREFILL(32, false)
-                  : Dh == 64 ? XRNPE_PREFILL(64, false) : XRNPE_PREFILL(128, false);
+#define XRNPE_PREFILL(DH, FULL, NARROW)                                                    \
+  launch_prefill<DH, FULL, NARROW>(q, k_codes, k_scale, v_codes, v_scale, page_table, start, out,  \
+                           B, C, NP, page, nsub, Kh, G, Dh, Gs, softcap, scale, st)
+  XRNPE_DISPATCH(XRNPE_PREFILL);
 #undef XRNPE_PREFILL
 }

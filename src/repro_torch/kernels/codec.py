@@ -8,11 +8,19 @@ words (Kp, Np/per), scales (G, Np) per channel (G = 1) or per K-group
 (G = Kp / group), and writes only the logical (K, N).  Each output is
 ``decode(code) * scale``, one f32 multiply, so kernel and plain version
 agree bit for bit.
+
+On the card ``dequant_plan`` picks the launch: the strip route (a block
+of 8 warps per strip of 32 16-byte word vectors and band of rows, a grid
+of about ``STRIP_BLOCKS_PER_SM`` blocks per SM) where a packed row is
+whole 16-byte vectors and the words and scales start on 16-byte
+boundaries, else the word route (a thread per word).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -20,9 +28,40 @@ from ..core.formats import FormatSpec
 from ..core.packing import lanes_per_word
 from . import _build
 from . import ref
-from .rmmec_matmul import KIND
+from .rmmec_matmul import H100_SMS, KIND, _sms
 
-__all__ = ["dequant", "dequant_plain"]
+__all__ = ["dequant", "dequant_plain", "dequant_plan", "DequantPlan"]
+
+ROUTES = {"word": 0, "strip": 1}   # the .cu's enum Route
+STRIP_WARPS = 8         # warps of a strip block, one row each at a time
+STRIP_VECS = 32         # 16-byte word vectors of a strip, one a lane
+WORD_THREADS = 256      # threads of a word-route block
+STRIP_BLOCKS_PER_SM = 4
+
+
+class DequantPlan(NamedTuple):
+    """The route, its grid (x, y) and threads a block."""
+    route: str
+    grid: Tuple[int, int]
+    threads: int
+
+
+def dequant_plan(k: int, n: int, np_: int, bits: int, aligned: bool = True,
+                 sms: int = H100_SMS) -> DequantPlan:
+    """The launch of a dequant of the logical (k, n) of a packed slice
+    whose rows hold ``np_`` codes of ``bits`` bits, on a card of ``sms``
+    SMs; ``aligned``: words and scales start on 16-byte boundaries
+    (mirrors the C entry point)."""
+    per = lanes_per_word(bits)
+    if (np_ // per) % 4 == 0 and aligned:
+        vecs = math.ceil(n / (4 * per))          # word vectors holding outputs
+        strips = max(1, math.ceil(vecs / STRIP_VECS))
+        bands = max(1, min(math.ceil(k / STRIP_WARPS),
+                           math.ceil(sms * STRIP_BLOCKS_PER_SM / strips)))
+        return DequantPlan("strip", (strips, bands), 32 * STRIP_WARPS)
+    words = k * math.ceil(n / per)
+    return DequantPlan("word", (max(1, math.ceil(words / WORD_THREADS)), 1),
+                       WORD_THREADS)
 
 
 def dequant_plain(words: torch.Tensor, scales: torch.Tensor,
@@ -33,7 +72,7 @@ def dequant_plain(words: torch.Tensor, scales: torch.Tensor,
 
 
 _ARGTYPES = {
-    "dequant": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
+    "dequant": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14
     + [ctypes.c_void_p],
 }
 
@@ -68,10 +107,13 @@ def dequant(words: torch.Tensor, scales: torch.Tensor, spec: FormatSpec,
         if t.device != words.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {words.device}")
     out = torch.empty((k, n), dtype=torch.float32, device=words.device)
+    aligned = (words.data_ptr() | scales.data_ptr()) % 16 == 0
+    plan = dequant_plan(k, n, np_, spec.bits, aligned, _sms(words.device))
     err = _lib().dequant(
         words.data_ptr(), scales.data_ptr(), out.data_ptr(), k, n, np_,
         kp // g if g > 1 else 0, KIND[spec.kind], spec.bits, spec.es,
         spec.ebits, spec.mbits, int(spec.has_nan), spec.frac_bits,
+        ROUTES[plan.route], *plan.grid,
         torch.cuda.current_stream(words.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dequant launch failed: CUDA error {err}")

@@ -21,8 +21,12 @@ with the same bf16 tensor-core code (a team of four warps per 16 rows;
 q and p split into three bf16 terms, K and V exact in bf16) and fold
 with the same function, so paged decode equals contiguous decode
 bitwise when page == blk, and a C = 1 prefill chunk equals paged decode
-bitwise.  The kernels take Dh in {32, 64, 128} and pages (KV blocks) of
-1..128 slots, so every block size ``default_kv_block`` chooses.
+bitwise.  The kernels take any Dh in 1..256 (instantiated at widths 32,
+64, 128 and 256; a narrower head runs on the next width with zero
+columns) and pages (KV blocks) of any size: a page walks as ``s``
+sub-pages of ``sub_page(page, dh)`` slots, the largest divisor of the
+page that fits a kernel (128 slots, 64 at widths above 128), so a
+256-slot page gives the bits of two 128-slot pages.
 
 The plain versions are the twins of the reference's blocked XLA loops
 (``repro.models.attention.decode_quantized_blocks``,
@@ -47,7 +51,8 @@ from .ref import dequant_kv_ref, no_tf32
 
 __all__ = ["flash_decode", "flash_decode_plain", "paged_flash_decode",
            "paged_flash_decode_plain", "paged_flash_prefill",
-           "paged_flash_prefill_plain", "default_kv_block"]
+           "paged_flash_prefill_plain", "default_kv_block", "kernel_width",
+           "sub_page"]
 
 _NEG_INF = -1e30
 
@@ -172,14 +177,28 @@ def paged_flash_prefill_plain(q, k_codes, k_scale, v_codes, v_scale,
 
 
 _ARGTYPES = {
-    "paged_flash_decode": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+    "paged_flash_decode": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
     + [ctypes.c_float] * 2 + [ctypes.c_void_p],
-    "paged_flash_prefill": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    "paged_flash_prefill": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
     + [ctypes.c_float] * 2 + [ctypes.c_void_p],
 }
 
-_KERNEL_DH = (32, 64, 128)
-_MAX_PAGE = 128
+KERNEL_WIDTHS = (32, 64, 128, 256)   # the .cu's instantiations (width_of)
+MAX_SUB = 128        # most slots of a sub-page the kernels walk (MAXP)
+MAX_SUB_WIDE = 64    # ... at a width above 128 (MAXP_WIDE)
+MAX_DH = KERNEL_WIDTHS[-1]
+
+
+def kernel_width(dh: int) -> int:
+    """The instantiated width a head of ``dh`` columns runs on."""
+    return next(w for w in KERNEL_WIDTHS if dh <= w)
+
+
+def sub_page(page: int, dh: int) -> int:
+    """Slots of the sub-pages the kernels walk a page of ``page`` slots
+    as: its largest divisor that fits a kernel at ``dh``'s width."""
+    cap = MAX_SUB if kernel_width(dh) <= 128 else MAX_SUB_WIDE
+    return next(d for d in range(min(page, cap), 0, -1) if page % d == 0)
 
 
 def _lib() -> ctypes.CDLL:
@@ -219,11 +238,11 @@ def _cuda_operands(q, named, index_names=()):
 
 
 def _check_kernel_shape(name: str, dh: int, page: int) -> None:
-    """Raises for what the CUDA kernels do not take: Dh outside {32, 64,
-    128}, or a page (KV block) outside 1..128 slots."""
-    if dh not in _KERNEL_DH or not 0 < page <= _MAX_PAGE:
-        raise ValueError(f"{name} on the card takes Dh in {_KERNEL_DH} and "
-                         f"a page of 1..{_MAX_PAGE} slots, not Dh={dh}, "
+    """Raises for what the CUDA kernels do not take: Dh outside 1..256, or
+    a page (KV block) of no slot."""
+    if not 1 <= dh <= MAX_DH or page < 1:
+        raise ValueError(f"{name} on the card takes Dh in 1..{MAX_DH} and "
+                         f"a page of at least 1 slot, not Dh={dh}, "
                          f"page={page}")
 
 
@@ -235,10 +254,14 @@ def _decode_cuda(q, k_codes, k_scale, v_codes, v_scale, page: int,
     contiguous.  A null ``page_table`` addresses a contiguous cache
     (B, n_pages * page, Kh, Dh); a null ``positions`` puts every row at
     ``pos``; a null ``pad`` means no left pad.  Counts nothing: the
-    wrappers count their own launches."""
+    wrappers count their own launches.  The kernels walk each page as
+    ``page // sub`` sub-pages of ``sub_page(page, dh)`` slots, and keep a
+    partial of the kernel's width for each."""
     b, kh, g, dh = q.shape
     _check_kernel_shape("decode", dh, page)
-    scratch = torch.empty(b * kh * n_pages * g * (dh + 2),
+    sub = sub_page(page, dh)
+    nsub = page // sub
+    scratch = torch.empty(b * kh * n_pages * nsub * g * (kernel_width(dh) + 2),
                           dtype=torch.float32, device=q.device)
     out = torch.empty((b, kh, g, dh), dtype=torch.float32, device=q.device)
     ptr = [None if x is None else x.data_ptr()
@@ -246,8 +269,8 @@ def _decode_cuda(q, k_codes, k_scale, v_codes, v_scale, page: int,
     err = _lib().paged_flash_decode(
         q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
         v_codes.data_ptr(), v_scale.data_ptr(), *ptr, scratch.data_ptr(),
-        out.data_ptr(), b, n_pages, page, kh, g, dh, k_scale.shape[-1], pos,
-        float(softcap), 1.0 / math.sqrt(dh),
+        out.data_ptr(), b, n_pages * nsub, sub, nsub, kh, g, dh,
+        k_scale.shape[-1], pos, float(softcap), 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode launch failed: CUDA error {err}")
@@ -368,12 +391,14 @@ def paged_flash_prefill(q: torch.Tensor, k_codes: torch.Tensor,
                        ("page_table", "start"))
     page, gs = k_codes.shape[1], k_scale.shape[-1]
     _check_kernel_shape("paged_flash_prefill", dh, page)
+    sub = sub_page(page, dh)
+    nsub = page // sub
     out = torch.empty((b, c, kh, g, dh), dtype=torch.float32, device=q.device)
     err = _lib().paged_flash_prefill(
         q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
         v_codes.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-        start.data_ptr(), out.data_ptr(), b, c, page_table.shape[1], page,
-        kh, g, dh, gs, float(softcap), 1.0 / math.sqrt(dh),
+        start.data_ptr(), out.data_ptr(), b, c, page_table.shape[1] * nsub,
+        sub, nsub, kh, g, dh, gs, float(softcap), 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_flash_prefill launch failed: CUDA error "

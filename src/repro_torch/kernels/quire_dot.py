@@ -10,6 +10,10 @@ happens outside, in ``ops.quire_combine``.  It launches the CUDA kernel
 of ``csrc/quire_dot.cu`` on a CUDA tensor and runs ``quire_dot_plain``
 on a CPU tensor.  No padding is needed: the (8, 512) blocks of
 ``repro.kernels.ops.quire_dot`` were the TPU's.
+
+On the card ``quire_route`` picks the kernel: a block per row with
+16-byte loads, or the same loop with 4-byte loads where rows are not
+whole 16-byte vectors.
 """
 
 from __future__ import annotations
@@ -24,10 +28,19 @@ import torch
 from ..core import formats as fmt
 from . import _build
 
-__all__ = ["QUIRE_FRAC_BITS", "quire_dot", "quire_dot_plain"]
+__all__ = ["QUIRE_FRAC_BITS", "quire_dot", "quire_dot_plain", "quire_route"]
 
 QUIRE_FRAC_BITS = 22   # lsb of the lo limb = 2^-22
 _PROD_FRAC_BITS = 12   # lsb of a posit8 product: 2^-6 * 2^-6
+
+ROUTES = {"row": 0, "scalar": 1}   # the .cu's enum Route
+
+
+def quire_route(k: int, aligned: bool = True) -> str:
+    """The kernel for rows of ``k`` codes (one block a row either way);
+    ``aligned``: both operands start on 16-byte boundaries (mirrors the C
+    entry point)."""
+    return "row" if k % 4 == 0 and aligned else "scalar"
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,7 +63,7 @@ def quire_dot_plain(a_codes: torch.Tensor, b_codes: torch.Tensor
 
 
 _ARGTYPES = {
-    "quire_dot": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    "quire_dot": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
 }
 
@@ -79,9 +92,11 @@ def quire_dot(a_codes: torch.Tensor, b_codes: torch.Tensor
     bsz, kdim = a_codes.shape
     hi = torch.empty((bsz, 1), dtype=torch.int32, device=a_codes.device)
     lo = torch.empty((bsz, 1), dtype=torch.int32, device=a_codes.device)
+    aligned = (a_codes.data_ptr() | b_codes.data_ptr()) % 16 == 0
     err = _lib().quire_dot(
         a_codes.data_ptr(), b_codes.data_ptr(), hi.data_ptr(), lo.data_ptr(),
-        bsz, kdim, torch.cuda.current_stream(a_codes.device).cuda_stream)
+        bsz, kdim, ROUTES[quire_route(kdim, aligned)],
+        torch.cuda.current_stream(a_codes.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"quire_dot launch failed: CUDA error {err}")
     quire_dot.launches += 1

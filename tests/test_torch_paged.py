@@ -196,10 +196,12 @@ def test_paged_wrappers_reject_bad_shapes():
 @pytest.mark.parametrize("dh,page,ok", [
     (32, 8, True), (64, 128, True), (128, 40, True), (64, 24, True),
     (64, 12, True), (64, 1, True), (64, 2, True), (32, 4, True),
-    (128, 127, True), (48, 16, False), (64, 136, False), (64, 0, False)])
+    (128, 127, True), (48, 16, True), (64, 136, True), (64, 0, False),
+    (256, 128, True), (112, 128, True), (64, 256, True), (64, 131, True),
+    (40, 8, True), (264, 8, False), (0, 8, False)])
 def test_kernel_shape_guard(dh, page, ok):
-    """What the CUDA kernels take (Dh in {32, 64, 128}, pages of 1..128
-    slots: every block size ``default_kv_block`` chooses) is checked in
+    """What the CUDA kernels take (Dh in 1..256, a page of any size: one
+    of more than a sub-page's slots walks as sub-pages) is checked in
     Python before a launch."""
     if ok:
         _check_kernel_shape("decode", dh, page)
