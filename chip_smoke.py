@@ -27,8 +27,8 @@ Phases, each of which fails the run (non-zero exit) on any miss:
   4. the reduced config (float32) served on the card and on the CPU
      (plain versions) from the same weights: logits and tokens must agree,
      also at max_len 100 and 66 (KV blocks of 4 and 2 slots) and at
-     head_dim 256 (gemma-2b's width), with the decode kernel's launches
-     counted.
+     head_dim 256 (gemma-2b's width) and 320 (the wide route), with the
+     decode kernel's launches counted.
 
 and, for continuous batching over the paged posit8 KV pool:
 
@@ -46,7 +46,11 @@ and, for continuous batching over the paged posit8 KV pool:
       256 and 131 slots (walked as sub-pages), decode at page 256 bitwise
       against decode at page 128 and contiguous decode at blk 128; heads
       of 256 (gemma-2b: Kh=1, G=8), 112 and 40 columns at page 128, each
-      timed beside SDPA;
+      timed beside SDPA; heads of 320, 512 and 300 columns (the wide
+      route): contiguous decode, paged decode at pages 128 and 256 and
+      256-token prefill chunks against the plain versions, bitwise paged
+      == contiguous decode at page == blk and C=1 prefill == decode, Dh
+      320 and 512 timed beside SDPA;
   3b. ``ContinuousEngine`` serving full-width qwen2-0.5b (paper_mixed
       weights, 20 pages of 128 slots, prefix cache, 256-token chunks) a
       16-request mix with a shared preamble and staggered arrivals, at
@@ -54,6 +58,12 @@ and, for continuous batching over the paged posit8 KV pool:
       tokens, a preemption and a prefix hit, exact launch counts; then
       K=1 on 10 pages of 256 slots: tokens equal the page-128 run's for
       every request neither run preempted;
+  3c. ``DisaggEngine`` on phase 3b's traffic and weights (20 prefill + 20
+      decode pages of 128 slots): K=4 under the sync guard, then K=1 on
+      the first 4 requests with 8 decode pages and a depth-1 channel
+      (bounces): tokens equal phase 3b's, handoff bytes equal pages x
+      ``page_handoff_bytes``, exact launch counts; ``last_decode_step_s``
+      p50/p99 printed beside phase 3b's ms per decode iteration;
   4b. the reduced config (float32): the carry context against the static
       engine, the card against the CPU, and prefix cache on against off;
       the serving CLI with ``--continuous --prefill-chunk 256`` (its page
@@ -71,7 +81,16 @@ and, for the paper's SIMD-MAC engine plane:
   5.  the engine plane's entry point at its own full size: the Table II
       and Table III bench twins (``repro_torch.benchmarks``) on the card,
       their CSV rows logged, with exact launch counts of ``rmmec_matmul``,
-      ``dequant`` and ``quire_dot``.
+      ``dequant`` and ``quire_dot``;
+
+and, for the paper's accuracy plane:
+
+  6.  the ``bench_accuracy`` and ``bench_model_size`` twins on the card at
+      the reference's sizes and steps (rows logged), then the card against
+      the CPU: five AdamW steps of each perception model from one init
+      (losses within 1e-4 relative), and ``quantize_tree`` bitwise equal
+      on both devices under every policy of the sweep, with the quantized
+      models' metrics within 1e-5.
 
 The last lines are the card's name and power limit, one JSON line with
 each kernel's launches, error and times, and ``{"ok": true, ...}``.
@@ -626,7 +645,7 @@ def profile_decode(eng, toks, step_ms: float, steps: int = 8) -> None:
 LOGIT_ATOL = 1e-3   # float32 config: only sum order differs (TF32 off)
 
 
-def phase_parity(fails) -> None:
+def phase_parity(summary, fails) -> None:
     from repro_torch.configs import get_config
     from repro_torch.core.policy import PrecisionPolicy
     from repro_torch.models import zoo
@@ -680,36 +699,48 @@ def phase_parity(fails) -> None:
         if n != want:
             fails.append(f"parity: max_len={max_len} flash_decode launched "
                          f"{n} times, expected {want}")
-    # gemma-2b's head width: the 256-wide kernels (64-slot sub-pages)
-    wide = dataclasses.replace(cfg, head_dim=256)
-    wparams = zoo.init_model(wide, torch.Generator("cpu").manual_seed(7))
-    engs = {dev: ServeEngine(wide, wparams, max_len=64, quantized_kv=True,
-                             policy=PrecisionPolicy.paper_mixed(), device=dev)
-            for dev in ("cpu", "cuda")}
-    wlogits = {}
-    for dev, eng in engs.items():
-        batch = {"tokens": torch.as_tensor(toks, device=dev)}
-        with torch.inference_mode():
-            wlogits[dev] = zoo.apply_model(eng.params, batch, wide)[0].cpu()
-    err = (wlogits["cuda"] - wlogits["cpu"]).abs().max().item()
-    flash_decode.launches = 0
-    outs = {dev: eng.generate(toks, steps, lengths=lengths)
-            for dev, eng in engs.items()}
-    torch.cuda.synchronize()
-    n = flash_decode.launches
-    same = bool(np.array_equal(outs["cpu"], outs["cuda"]))
-    want = wide.n_layers * steps
-    log(f"[parity] {wide.name} (float32) head_dim=256: prefill logits "
-        f"max_abs_err {err:.3e} (tol {LOGIT_ATOL}); ragged greedy tokens "
-        f"equal: {same}; flash_decode launches {n}, expected {want}")
-    if not err <= LOGIT_ATOL:
-        fails.append(f"parity: head_dim=256 logits differ by {err}")
-    if not same:
-        fails.append("parity: head_dim=256 greedy tokens differ between "
-                     "cuda and cpu")
-    if n != want:
-        fails.append(f"parity: head_dim=256 flash_decode launched {n} "
-                     f"times, expected {want}")
+    # gemma-2b's head width (the 256-wide kernels, 64-slot sub-pages) and
+    # a head of 320 columns (the wide route: its launches are the
+    # attention_wide entry's)
+    from repro_torch.kernels.flash_decode import wide_route
+    for head_dim in (256, 320):
+        wide = dataclasses.replace(cfg, head_dim=head_dim)
+        wparams = zoo.init_model(wide, torch.Generator("cpu").manual_seed(7))
+        engs = {dev: ServeEngine(wide, wparams, max_len=64,
+                                 quantized_kv=True,
+                                 policy=PrecisionPolicy.paper_mixed(),
+                                 device=dev) for dev in ("cpu", "cuda")}
+        wlogits = {}
+        for dev, eng in engs.items():
+            batch = {"tokens": torch.as_tensor(toks, device=dev)}
+            with torch.inference_mode():
+                wlogits[dev] = zoo.apply_model(eng.params, batch,
+                                               wide)[0].cpu()
+        err = (wlogits["cuda"] - wlogits["cpu"]).abs().max().item()
+        flash_decode.launches = wide_route.launches = 0
+        outs = {dev: eng.generate(toks, steps, lengths=lengths)
+                for dev, eng in engs.items()}
+        torch.cuda.synchronize()
+        n, n_wide = flash_decode.launches, wide_route.launches
+        same = bool(np.array_equal(outs["cpu"], outs["cuda"]))
+        want = wide.n_layers * steps
+        want_wide = want if head_dim > 256 else 0
+        log(f"[parity] {wide.name} (float32) head_dim={head_dim}: prefill "
+            f"logits max_abs_err {err:.3e} (tol {LOGIT_ATOL}); ragged greedy "
+            f"tokens equal: {same}; flash_decode launches {n}, expected "
+            f"{want}; wide route {n_wide}, expected {want_wide}")
+        if not err <= LOGIT_ATOL:
+            fails.append(f"parity: head_dim={head_dim} logits differ by "
+                         f"{err}")
+        if not same:
+            fails.append(f"parity: head_dim={head_dim} greedy tokens differ "
+                         f"between cuda and cpu")
+        if n != want or n_wide != want_wide:
+            fails.append(f"parity: head_dim={head_dim} flash_decode "
+                         f"launched {n} times ({n_wide} wide), expected "
+                         f"{want} ({want_wide})")
+        if head_dim > 256:
+            summary["attention_wide"]["launches"] = n_wide
 
 
 # ---------------------------------------------------------------------------
@@ -956,6 +987,98 @@ def phase_paged(summary, fails) -> None:
     d, p = _paged_times("", gen, rng, b, kh, g, dh, page, npp)
     summary["paged_flash_decode"] = dict(max_abs_err=err_d, **d)
     summary["paged_flash_prefill"] = dict(max_abs_err=err_p, **p)
+    phase_wide(summary, fails, gen, rng)
+
+
+def phase_wide(summary, fails, gen, rng) -> None:
+    """Heads of more than 256 columns (the wide route): Dh 320, 512 and
+    300 at qwen2-0.5b's Kh=2, G=7.  Each case: contiguous decode, paged
+    decode at pages 128 and 256 and a 256-token prefill chunk against the
+    plain versions (1e-4); bitwise paged == contiguous decode at page ==
+    blk (128 and 256) and C=1 prefill == decode; times beside SDPA."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_plain, paged_flash_decode,
+        paged_flash_decode_plain, paged_flash_prefill,
+        paged_flash_prefill_plain, wide_route)
+    from repro_torch.models.attention import quantize_kv
+    b, kh, g = 4, 2, 7
+    err = 0.0
+    wide_route.launches = 0
+    launched = 0
+    for dh, group in ((320, None), (320, 32), (512, None), (512, 32),
+                      (300, None), (300, 60)):
+        tag = f"wide Dh={dh} group={group}"
+        q = torch.randn((b, kh, g, dh), generator=gen, device="cuda")
+        for page, npp in ((128, 6), (256, 3)):
+            t = page * npp
+            kv = torch.randn((2, b, t, kh, dh), generator=gen, device="cuda")
+            contig = (*quantize_kv(kv[0], group), *quantize_kv(kv[1], group))
+            pt = torch.tensor(rng.permutation(np.arange(1, b * npp + 1))
+                              .reshape(b, npp), dtype=torch.int32,
+                              device="cuda")
+            pool = [_scatter(x, pt, b * npp + 1, page) for x in contig]
+            positions = [0, page - 1, page + 5, t - 1]
+            pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+            got = paged_flash_decode(q, *pool, pt, pos, 20.0)
+            launched += 1
+            err = max(err, _check(
+                f"{tag} paged decode page={page} pos={positions}", got,
+                paged_flash_decode_plain(q, *pool, pt, pos, 20.0),
+                ref.paged_flash_decode_ref(q, *pool, pt, pos, 20.0), fails,
+                atol=FLASH_ATOL))
+            _bitwise(f"{tag} C=1 prefill == decode page={page}",
+                     paged_flash_prefill(q[:, None], *pool, pt, pos,
+                                         20.0)[:, 0], got, fails)
+            launched += 1
+            for p_ in (0, page, t - 1):
+                one = torch.full((b,), p_, dtype=torch.int32, device="cuda")
+                contiguous = flash_decode(q, *contig, p_, softcap=20.0,
+                                          blk=page)
+                launched += 1
+                _bitwise(f"{tag} paged == contiguous page=blk={page} "
+                         f"pos={p_}", paged_flash_decode(
+                             q, *pool, pt, one, 20.0), contiguous, fails)
+                launched += 1
+            if page == 128:
+                p_ = t - 40
+                got = flash_decode(q, *contig, p_, softcap=20.0, blk=page)
+                launched += 1
+                torch.cuda.synchronize()
+                want = flash_decode_plain(q, *contig, p_, softcap=20.0,
+                                          blk=page)
+                e = (got - want).abs().max().item()
+                log(f"[paged] {tag} contiguous decode pos={p_} "
+                    f"max_abs_err={e:.3e} vs plain (tol {FLASH_ATOL}) "
+                    f"{'ok' if e <= FLASH_ATOL else 'MISS'}")
+                if not e <= FLASH_ATOL:
+                    fails.append(f"paged {tag} contiguous decode")
+                err = max(err, e)
+            q5 = torch.randn((2, 256, kh, g, dh), generator=gen,
+                             device="cuda")
+            st = torch.tensor([0, t - 256], dtype=torch.int32, device="cuda")
+            err = max(err, _check(
+                f"{tag} prefill page={page} C=256 start={st.tolist()}",
+                paged_flash_prefill(q5, *pool, pt[:2], st, 20.0),
+                paged_flash_prefill_plain(q5, *pool, pt[:2], st, 20.0),
+                ref.paged_prefill_ref(q5, *pool, pt[:2], st, 20.0), fails))
+            launched += 1
+    torch.cuda.synchronize()
+    if wide_route.launches != launched:
+        fails.append(f"wide route launched {wide_route.launches} times, "
+                     f"expected {launched}")
+    log(f"[paged] wide route: {wide_route.launches} launches, max_abs_err "
+        f"{err:.3e}")
+    times = {}
+    for dh in (320, 512):
+        times[dh] = _paged_times(f"Kh={kh} G={g} Dh={dh} (wide route)", gen,
+                                 rng, 8, kh, g, dh, 128, 8)
+    d512, p512 = times[512]
+    summary["attention_wide"] = dict(
+        max_abs_err=err, **d512,
+        **{f"{k}_prefill": v for k, v in p512.items()},
+        **{f"{k}_dh320": v for k, v in times[320][0].items()},
+        **{f"{k}_prefill_dh320": v for k, v in times[320][1].items()})
 
 
 def _paged_times(tag, gen, rng, b, kh, g, dh, page, npp):
@@ -1200,7 +1323,122 @@ def phase_continuous(summary, fails) -> None:
     summary["continuous"] = stats
     _continuous_page_256(cfg, params, kw, reqs, outs[1], stats[1], counters,
                          fails)
+    # phase 3c before the profiler window, so that both engines' runs
+    # precede it
+    t0 = time.perf_counter()
+    phase_disagg(summary, fails, cfg, params, kw, reqs, outs[1], stats)
+    log(f"[time] full-width disaggregated serve "
+        f"{time.perf_counter() - t0:.1f} s")
     profile_continuous(cfg, params, kw, reqs)
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: disaggregated serving at full width
+# ---------------------------------------------------------------------------
+
+def _serve_disagg(eng, reqs):
+    """``_serve_continuous``'s arrivals, stepping by hand to keep each
+    step's ``last_decode_step_s`` (steps that decoded); returns
+    ({request index: output tokens}, [decode-side seconds per step])."""
+    rids = [eng.submit(p, n) for p, n in reqs[:8]]
+    dec = []
+    for _ in range(3):
+        eng.step()
+        dec.append(eng.last_decode_step_s)
+    rids += [eng.submit(p, n) for p, n in reqs[8:]]
+    while eng.has_work:
+        before = eng.decode_dispatches
+        eng.step()
+        if eng.decode_dispatches > before:
+            dec.append(eng.last_decode_step_s)
+    fin = eng.finished
+    return {i: fin[r].output for i, r in enumerate(rids)}, dec
+
+
+def phase_disagg(summary, fails, cfg, params, kw, reqs, want, cont) -> None:
+    """``DisaggEngine`` on phase 3b's traffic and weights: 20 prefill + 20
+    decode pages of 128 slots, K=4 under the sync guard, then a short K=1
+    run (the first 4 requests, 17 pages of need) on 8 decode pages with
+    a depth-1 channel, which bounces.  Tokens of every request equal phase 3b's; handoff
+    bytes equal pages x ``page_handoff_bytes``; launch counts exact."""
+    from repro_torch.obs import TraceRecorder
+    from repro_torch.serve.disagg import DisaggEngine
+    from repro_torch.serve.paged_kv import page_handoff_bytes
+    counters = _launch_counters()
+    smi = card()
+    n_layers = cfg.n_layers
+    stats = {}
+    for tag, k, n_req, extra in (
+            ("K=4", 4, len(reqs), dict(decode_pages=20)),
+            ("K=1 bounce", 1, 4, dict(decode_pages=8, channel_depth=1))):
+        rec = TraceRecorder()
+        eng = DisaggEngine(cfg, params, prefill_pages=20, decode_steps=k,
+                           trace=rec, sync_guard=True, **kw, **extra)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, dec = _serve_disagg(eng, reqs[:n_req])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        iters = eng.decode_dispatches * k
+        chunks = rec.count("PREFILL_CHUNK")
+        gen = sum(len(o) - len(p) for o, (p, _) in zip(out.values(), reqs))
+        dec_ms = np.asarray(dec) * 1e3
+        halves = {n: sum(e["dur"] for e in rec.events(n)) * 1e3
+                  / max(eng.decode_dispatches, 1)
+                  for n in ("decode_dispatch", "decode_sync", "prefill")}
+        st = dict(
+            k=k, requests=n_req, wall_s=wall, generated=gen,
+            tok_per_s=gen / wall, dispatches=eng.decode_dispatches,
+            decode_iterations=iters, prefill_chunks=chunks,
+            decode_step_ms_p50=float(np.percentile(dec_ms, 50)),
+            decode_step_ms_p99=float(np.percentile(dec_ms, 99)),
+            decode_step_ms_per_iteration_p50=float(
+                np.percentile(dec_ms, 50)) / k,
+            dispatch_ms_mean=halves["decode_dispatch"],
+            sync_ms_mean=halves["decode_sync"],
+            prefill_step_ms_mean=halves["prefill"],
+            handoffs=eng.handoffs, handoff_pages=eng.handoff_pages,
+            handoff_bytes=eng.handoff_bytes, bounces=eng.decode_bounces,
+            preemptions=eng.prefill.scheduler.preemption_count,
+            prefix_hits=eng.prefill.scheduler.prefix.hits,
+            page_table_uploads=eng.page_table_uploads)
+        stats[tag] = st
+        log(f"[disagg] {smi}, {tag}: " + json.dumps(st))
+        log(f"[disagg] {tag}: last_decode_step_s p50 "
+            f"{st['decode_step_ms_p50']:.2f} ms / p99 "
+            f"{st['decode_step_ms_p99']:.2f} ms per step of K={k} "
+            f"({st['decode_step_ms_per_iteration_p50']:.2f} ms per iteration) "
+            f"beside phase 3b's {cont[k]['ms_per_decode_iteration']:.2f} ms "
+            f"per decode iteration at K={k} (interleaved)")
+        expect = {"paged_flash_decode": n_layers * iters,
+                  "paged_flash_prefill": n_layers * chunks,
+                  "rmmec_matmul": 7 * n_layers * (iters + chunks),
+                  "flash_decode": 0, "dequant": 0, "quire_dot": 0}
+        log(f"[disagg] {tag} launches {launches}, expected {expect}")
+        for name, n in expect.items():
+            if launches[name] != n:
+                fails.append(f"disagg {tag}: {name} launched "
+                             f"{launches[name]} times, expected {n}")
+        model = eng.handoff_pages * page_handoff_bytes(cfg, 128)
+        if eng.handoff_bytes != model or eng.handoffs < n_req:
+            fails.append(f"disagg {tag}: {eng.handoffs} handoffs of "
+                         f"{eng.handoff_bytes} bytes, model {model}")
+        if tag.endswith("bounce") and eng.decode_bounces < 1:
+            fails.append(f"disagg {tag}: the small decode pool bounced "
+                         f"nothing")
+        if eng.decode.pool.used_pages or eng.prefill.pool.used_pages != len(
+                eng.prefill.scheduler.prefix.cached_pages):
+            fails.append(f"disagg {tag}: pages left in use after draining")
+        differ = [i for i in out if not np.array_equal(out[i], want[i])]
+        log(f"[disagg] {tag}: tokens equal phase 3b's for all {n_req} "
+            f"requests: {not differ}")
+        if differ:
+            fails.append(f"disagg {tag}: tokens differ from phase 3b's for "
+                         f"requests {differ}")
+    summary["disagg"] = stats
 
 
 def _continuous_page_256(cfg, params, kw, reqs, want, want_stats, counters,
@@ -1503,6 +1741,114 @@ def phase_engine_kernels(summary, fails) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the accuracy plane (the perception models, QAT, the policy)
+# ---------------------------------------------------------------------------
+
+ACC_REL = 1e-4    # card vs CPU losses: float32 sums in another order
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_accuracy(fails) -> None:
+    """The bench_accuracy and bench_model_size twins on the card at the
+    reference's sizes and steps (their rows logged), then the card against
+    the CPU: five AdamW steps of each perception model from one init
+    (losses within ACC_REL), and one parameter set on both devices:
+    ``quantize_tree`` bitwise equal under every policy of the sweep, the
+    metrics of the quantized models within 1e-5."""
+    from repro_torch.benchmarks import bench_accuracy as B
+    from repro_torch.benchmarks import bench_model_size
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.core.qat import quantize_tree
+    from repro_torch.data.vio_data import VIOStream
+    from repro_torch.models import perception as P
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            bench_model_size.run("cuda")
+            B.run("cuda")
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"[accuracy] {line}")
+    torch.cuda.synchronize()
+    rows = [ln.split(",", 2) for ln in buf.getvalue().splitlines()]
+    want_rows = 6 + 2 * (len(B.SWEEP) + 2) + 8 + len(B.SWEEP)
+    bad = [r for r in rows if len(r) != 3 or not all(
+        np.isfinite(float(kv.split("=")[1])) for kv in r[2].split(";"))]
+    log(f"[accuracy] {len(rows)} rows in {time.perf_counter() - t0:.1f} s "
+        f"(expected {want_rows})")
+    if len(rows) != want_rows or bad:
+        fails.append(f"accuracy: {len(rows)} rows (expected {want_rows}), "
+                     f"not finite: {bad}")
+
+    rng = np.random.default_rng(0)
+    templates = rng.normal(size=(10, 16, 16, 3)).astype(np.float32)
+    wtrue = rng.normal(size=(128, 2)).astype(np.float32) * 0.3
+    models = {
+        "classify": (P.classifier_loss,
+                     lambda g: P.classifier_init(g, width=8),
+                     lambda i, d: B.classify_batch(templates, i, device=d)),
+        "vio": (P.vio_loss, P.vio_init,
+                lambda i, d: {k: torch.as_tensor(v, device=d) for k, v in
+                              VIOStream(batch=64, step=i).next_batch()
+                              .items()}),
+        "gaze": (B.gaze_loss, P.gaze_init,
+                 lambda i, d: B.gaze_batch(wtrue, i, device=d)),
+    }
+    policies = [PrecisionPolicy.uniform(n) for n in B.SWEEP] \
+        + [PrecisionPolicy.paper_mixed()]
+    for name, (loss_fn, init, batches) in models.items():
+        params = init(torch.Generator("cpu").manual_seed(5))
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            _, _, ls = B.train(loss_fn, _to(params, dev),
+                               lambda i: batches(i, dev), lr=1e-3, steps=5)
+            losses[dev] = torch.stack(ls).cpu()
+        rel = ((losses["cuda"] - losses["cpu"]).abs()
+               / losses["cpu"].abs()).max().item()
+        log(f"[accuracy] {name}: 5 steps, losses cuda {losses['cuda'].tolist()}"
+            f" cpu {losses['cpu'].tolist()}, max rel diff {rel:.2e} "
+            f"(tol {ACC_REL})")
+        if not rel <= ACC_REL:
+            fails.append(f"accuracy: {name} card vs CPU losses differ by "
+                         f"{rel:.2e}")
+        same, err = True, 0.0
+        eval_b = {d: batches(7, d) for d in ("cpu", "cuda")}
+        with torch.no_grad():
+            for pol in policies:
+                q = {d: quantize_tree(_to(params, d), pol)
+                     for d in ("cpu", "cuda")}
+                for a, b in zip(_flat(q["cpu"]), _flat(q["cuda"])):
+                    same &= torch.equal(a, b.cpu())
+                m = {d: loss_fn(q[d], eval_b[d]) for d in ("cpu", "cuda")}
+                for key in m["cpu"][1]:
+                    want = float(m["cpu"][1][key])
+                    got = float(m["cuda"][1][key])
+                    err = max(err, abs(got - want) / max(abs(want), 1e-30))
+        log(f"[accuracy] {name}: quantize_tree card == CPU bitwise over "
+            f"{len(policies)} policies: {same}; metrics max rel diff "
+            f"{err:.2e} (tol 1e-5)")
+        if not same:
+            fails.append(f"accuracy: {name} quantize_tree differs card vs CPU")
+        if not err <= 1e-5:
+            fails.append(f"accuracy: {name} metrics differ card vs CPU by "
+                         f"{err:.2e}")
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k])
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the engine plane at its own full size (the bench twins)
 # ---------------------------------------------------------------------------
 
@@ -1575,7 +1921,7 @@ def main() -> int:
     phase_serve(summary, fails)
     log(f"[time] full-width serve {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_parity(fails)
+    phase_parity(summary, fails)
     log(f"[time] parity {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_continuous(summary, fails)
@@ -1585,7 +1931,10 @@ def main() -> int:
     log(f"[time] continuous parity {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_engine_plane(summary, fails)
-    log(f"[time] engine plane {time.perf_counter() - t0:.1f} s; total "
+    log(f"[time] engine plane {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_accuracy(fails)
+    log(f"[time] accuracy plane {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     if fails:
         for f in fails:
@@ -1599,7 +1948,8 @@ def main() -> int:
             ("paged_flash_decode", FLASH_SRC, PAGED_DECODE_TPU),
             ("paged_flash_prefill", FLASH_SRC, PAGED_PREFILL_TPU),
             ("dequant", DEQUANT_SRC, DEQUANT_TPU),
-            ("quire_dot", QUIRE_SRC, QUIRE_TPU)):
+            ("quire_dot", QUIRE_SRC, QUIRE_TPU),
+            ("attention_wide", FLASH_SRC, PAGED_DECODE_TPU)):
         s = summary[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu,
@@ -1615,6 +1965,10 @@ def main() -> int:
         elif name in ("dequant", "quire_dot"):   # the second timed shape
             kernels[-1].update({key: v for key, v in s.items()
                                 if key.startswith(("ms_", "bound_ms_"))})
+        elif name == "attention_wide":   # prefill and Dh 320 beside decode
+            kernels[-1].update({key: v for key, v in s.items()
+                                if key not in kernels[-1]
+                                and key != "max_abs_err"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

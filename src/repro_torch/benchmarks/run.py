@@ -4,9 +4,11 @@
 
   Table II  -> bench_mac_engine  (SIMD MAC engine, packed GEMM + quire)
   Table III -> bench_coprocessor (morphable 8x8/16x16 array)
+  Fig 5-8   -> bench_accuracy    (precision sweeps on the XR workloads)
+  size tbl  -> bench_model_size  (13.5 -> 2.42 MB UL-VIO story)
 
-  python -m repro_torch.benchmarks.run [--only mac_engine|coprocessor]
-                                       [--device cpu]
+  python -m repro_torch.benchmarks.run
+      [--only mac_engine|coprocessor|model_size|accuracy] [--device cpu]
 
 It runs on the CUDA card unless ``--device cpu`` asks for the plain
 path.
@@ -18,11 +20,14 @@ import argparse
 import sys
 import traceback
 
-from . import bench_coprocessor, bench_mac_engine
+from . import (bench_accuracy, bench_coprocessor, bench_mac_engine,
+               bench_model_size)
 
 BENCHES = {
     "mac_engine": bench_mac_engine.run,
     "coprocessor": bench_coprocessor.run,
+    "model_size": bench_model_size.run,
+    "accuracy": bench_accuracy.run,
 }
 
 

@@ -18,7 +18,8 @@ import torch
 from . import formats as fmt
 from .formats import FormatSpec
 
-__all__ = ["Codec", "get_codec", "register_codec", "encode", "decode"]
+__all__ = ["Codec", "get_codec", "register_codec", "encode", "decode",
+           "quantize"]
 
 _REGISTRY: Dict[str, Type["Codec"]] = {}
 
@@ -63,6 +64,10 @@ class Codec:
             return fmt.decode_table(self.spec, codes, dtype)
         return fmt.decode_bits(self.spec, codes, dtype)
 
+    def quantize(self, x: torch.Tensor) -> torch.Tensor:
+        """Round-trip onto the format's value grid (same dtype out)."""
+        return self.decode(self.encode(x), dtype=torch.float32).to(x.dtype)
+
 
 for _kind in ("posit", "minifloat", "fixed"):
     register_codec(_kind)(Codec)
@@ -78,6 +83,9 @@ class NativeCodec(Codec):
     def decode(self, codes, dtype=torch.float32):
         return codes.to(dtype)
 
+    def quantize(self, x):
+        return x.to(fmt.torch_dtype(self.spec.dtype)).to(x.dtype)
+
 
 def encode(spec: FormatSpec, x: torch.Tensor) -> torch.Tensor:
     return get_codec(spec).encode(x)
@@ -86,3 +94,7 @@ def encode(spec: FormatSpec, x: torch.Tensor) -> torch.Tensor:
 def decode(spec: FormatSpec, codes: torch.Tensor,
            dtype=torch.float32) -> torch.Tensor:
     return get_codec(spec).decode(codes, dtype)
+
+
+def quantize(spec: FormatSpec, x: torch.Tensor) -> torch.Tensor:
+    return get_codec(spec).quantize(x)

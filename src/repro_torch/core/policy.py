@@ -3,6 +3,7 @@
 An ordered list of (glob over slash-joined parameter paths -> format
 name) with a default.  The port's parameter trees are nested dicts with
 the reference's keys, so the same globs resolve the same formats.
+``model_bytes`` / ``average_bits`` are the reference's memory model.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 import fnmatch
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from . import formats as fmt
 from .formats import FormatSpec
@@ -76,6 +79,45 @@ class PrecisionPolicy:
 
     def resolve(self, params) -> Dict[str, FormatSpec]:
         return {p: self.format_for(p) for p, _ in flatten_with_paths(params)}
+
+    # -- memory model ------------------------------------------------------
+
+    def model_bytes(self, params) -> int:
+        """Packed model size under this policy (the paper's 13.5 -> 2.42
+        MB): packed codes rounded up to whole bytes, plus an f32 scale
+        per (K-group, out-channel) of every slice of a matrix leaf, or one
+        per-tensor scale for a vector; native formats at their size."""
+        total = 0
+        for path, leaf in flatten_with_paths(params):
+            spec = self.format_for(path)
+            shape = tuple(leaf.shape)
+            n = int(np.prod(shape)) if shape else 1
+            if spec.kind == "native":
+                total += n * fmt.torch_dtype(spec.dtype).itemsize
+            else:
+                total += (n * spec.bits + 7) // 8
+                if len(shape) >= 2:
+                    g = self.group_for(path)
+                    groups = -(-shape[-2] // g) if g else 1
+                    total += (n // (shape[-2] * shape[-1])) \
+                        * groups * shape[-1] * 4
+                else:
+                    total += 4
+        return total
+
+    def average_bits(self, params) -> float:
+        """Bits per parameter under this policy, weighted by leaf size."""
+        bits = 0
+        n_tot = 0
+        for path, leaf in flatten_with_paths(params):
+            spec = self.format_for(path)
+            shape = tuple(leaf.shape)
+            n = int(np.prod(shape)) if shape else 1
+            b = spec.bits if spec.kind != "native" else \
+                fmt.torch_dtype(spec.dtype).itemsize * 8
+            bits += n * b
+            n_tot += n
+        return bits / max(n_tot, 1)
 
     @classmethod
     def uniform(cls, name: str) -> "PrecisionPolicy":

@@ -98,7 +98,27 @@
 // instantiations; a head of the full width compiles to the kernels as
 // they were.
 //
-// Limits: Dh in 1 .. 256; a page of any size >= 1.
+// Wide heads.  A head of more than 256 columns takes its own route
+// (wide_kernel): SIMT, one block of 8 warps per (b, kv-head, query row),
+// with the row's q and its O accumulator in shared memory (8 bytes a
+// column, so Dh up to WIDE_MAX_DH = 4096 within the default 48 KB).  It
+// walks the row's live slots in position order, 16 at a time: each warp
+// scores two slots (lane-strided fma over the columns, a fixed
+// xor-shuffle tree, so a score's bits do not depend on its warp), then
+// every thread folds the 16 slots, one after the other, into its own
+// columns of O with fold_stats / fold_value (m_p = the score, l_p = 1,
+// acc_p = the dequantized V row).  K and V dequantize exactly (the posit
+// table times the po2 scale of the column's group).  The slot order is
+// the same whatever the page size or addressing, and a C = 1 prefill row
+// runs the decode row's code, so on this route too paged == contiguous
+// decode (any page, any blk) and C = 1 prefill == decode, bitwise.  What
+// bounds it is latency, not bytes or operations: a block walks its slots
+// in series, each batch a chain of dependent loads (codes, then the table,
+// then the fold).  No config of the repo has such a head: this route is
+// right, not fast.
+//
+// Limits: Dh in 1 .. 4096 (above 256 on the wide route); a page of any
+// size >= 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -865,11 +885,144 @@ int allow_smem(int smem) {
   return static_cast<int>(err);
 }
 
-// Dh in 1 .. 256, a sub-page of 1 .. max_sub(width) slots, nsub of them a
-// page of the table (NP, the row's sub-pages, a multiple of nsub).
+// ---------------------------------------------------------------------------
+// the wide route: heads of more than 256 columns
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_THREADS = 256;
+constexpr int WIDE_WARPS = WIDE_THREADS / 32;
+constexpr int WIDE_SLOTS = 2 * WIDE_WARPS;     // slots scored at once, two a warp
+constexpr int WIDE_MAX_DH = 4096;              // q and O in 48 KB of shared memory
+
+__host__ __device__ inline int wide_smem_bytes(int Dh) { return (256 + 2 * Dh + WIDE_SLOTS) * 4; }
+
+// The (pool slot, kv head) row of logical slot kpos: pool sub-page
+// table[u / nsub] * nsub + u % nsub of `page` slots, or sub-page b*NP + u
+// of a contiguous cache when `row` is null.
+__device__ __forceinline__ size_t wide_slot(const int* __restrict__ row, int b, int kpos,
+                                            int NP, int page, int nsub, int Kh, int h) {
+  const int u = kpos / page;
+  const size_t pid = row != nullptr ? sub_page(row, u, nsub) : (size_t)b * NP + u;
+  return (pid * page + kpos % page) * Kh + h;
+}
+
+// grid (rows, Kh, B): block (r, h, b) takes query row r of (b, h).  Decode
+// (start null): rows r < G at the position (positions[b], or pos), slots
+// from pad[b] on.  Prefill: rows r = qi*G + gi of a chunk at start[b],
+// horizon start[b] + qi.  Slots stop at the table's last column.  A batch
+// of WIDE_SLOTS slots: warp w scores slots k0 + w and k0 + w + 8; then each
+// thread loads the batch's V values of one of its columns at once and folds
+// them in slot order (the fold weights of a slot are the same in every
+// thread: fold_stats on the same scores in the same order).
+__global__ void __launch_bounds__(WIDE_THREADS)
+wide_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kc,
+            const bf16* __restrict__ ks, const uint8_t* __restrict__ vc,
+            const bf16* __restrict__ vs, const int* __restrict__ page_table,
+            const int* __restrict__ positions, const int* __restrict__ pad,
+            const int* __restrict__ start, float* __restrict__ out, int C, int NP, int page,
+            int nsub, int Kh, int G, int Dh, int Gs, int pos, float softcap, float scale) {
+  extern __shared__ __align__(16) float wsm[];
+  float* lut = wsm;
+  float* qs = lut + 256;
+  float* os = qs + Dh;
+  float* sc = os + Dh;
+  const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  int hz, pad_lo = 0;
+  if (start != nullptr) {
+    hz = start[b] + r / G;
+  } else {
+    hz = positions != nullptr ? positions[b] : pos;
+    if (pad != nullptr) pad_lo = pad[b];
+  }
+  const int last = min(hz, NP * page - 1);
+  const size_t qr = row_index(b, h, r, C, Kh, G) * Dh;
+  for (int i = threadIdx.x; i < 256; i += WIDE_THREADS) lut[i] = Posit<8, 0>::decode(i);
+  for (int d = threadIdx.x; d < Dh; d += WIDE_THREADS) {
+    qs[d] = q[qr + d];
+    os[d] = 0.0f;
+  }
+  __syncthreads();
+  const int* row = page_table != nullptr ? page_table + (size_t)b * (NP / nsub) : nullptr;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, gw = Dh / Gs;
+  float M = NEG, L = 0.0f;
+  for (int k0 = pad_lo; k0 <= last; k0 += WIDE_SLOTS) {
+    const int n = min(WIDE_SLOTS, last - k0 + 1);
+    // scores: lane-strided fma over the columns, then a fixed xor tree
+    const int j0 = w, j1 = w + WIDE_WARPS;
+    const size_t s0 = wide_slot(row, b, k0 + min(j0, n - 1), NP, page, nsub, Kh, h);
+    const size_t s1 = wide_slot(row, b, k0 + min(j1, n - 1), NP, page, nsub, Kh, h);
+    float dot0 = 0.0f, dot1 = 0.0f;
+#pragma unroll 4
+    for (int d = lane; d < Dh; d += 32) {
+      const float k0v = __fmul_rn(lut[kc[s0 * Dh + d]], __bfloat162float(ks[s0 * Gs + d / gw]));
+      const float k1v = __fmul_rn(lut[kc[s1 * Dh + d]], __bfloat162float(ks[s1 * Gs + d / gw]));
+      dot0 = __fmaf_rn(qs[d], k0v, dot0);
+      dot1 = __fmaf_rn(qs[d], k1v, dot1);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      dot0 = __fadd_rn(dot0, __shfl_xor_sync(0xffffffffu, dot0, o));
+      dot1 = __fadd_rn(dot1, __shfl_xor_sync(0xffffffffu, dot1, o));
+    }
+    if (lane == 0) {
+      float v0 = __fmul_rn(dot0, scale), v1 = __fmul_rn(dot1, scale);
+      if (softcap > 0.0f) {
+        v0 = tanhf(v0 / softcap) * softcap;
+        v1 = tanhf(v1 / softcap) * softcap;
+      }
+      sc[j0] = v0;
+      sc[j1] = v1;
+    }
+    __syncthreads();
+    FoldWeights fw[WIDE_SLOTS];
+    size_t sl[WIDE_SLOTS];
+#pragma unroll
+    for (int j = 0; j < WIDE_SLOTS; ++j) {
+      if (j < n) {
+        fw[j] = fold_stats(M, L, sc[j], 1.0f);
+        sl[j] = wide_slot(row, b, k0 + j, NP, page, nsub, Kh, h);
+      }
+    }
+    for (int d = threadIdx.x; d < Dh; d += WIDE_THREADS) {
+      const int gi = d / gw;
+      float v[WIDE_SLOTS];
+#pragma unroll
+      for (int j = 0; j < WIDE_SLOTS; ++j)
+        v[j] = j < n ? __fmul_rn(lut[vc[sl[j] * Dh + d]], __bfloat162float(vs[sl[j] * Gs + gi]))
+                     : 0.0f;
+      float o = os[d];
+#pragma unroll
+      for (int j = 0; j < WIDE_SLOTS; ++j)
+        if (j < n) o = fold_value(o, v[j], fw[j]);
+      os[d] = o;
+    }
+    __syncthreads();  // sc is free again
+  }
+  for (int d = threadIdx.x; d < Dh; d += WIDE_THREADS) out[qr + d] = __fdiv_rn(os[d], L);
+}
+
+int launch_wide(const void* q, const void* kc, const void* ks, const void* vc, const void* vs,
+                const void* page_table, const void* positions, const void* pad,
+                const void* start, void* out, int B, int C, int NP, int page, int nsub, int Kh,
+                int G, int Dh, int Gs, int pos, float softcap, float scale,
+                cudaStream_t stream) {
+  wide_kernel<<<dim3(C * G, Kh, B), WIDE_THREADS, wide_smem_bytes(Dh), stream>>>(
+      static_cast<const float*>(q), static_cast<const uint8_t*>(kc),
+      static_cast<const bf16*>(ks), static_cast<const uint8_t*>(vc),
+      static_cast<const bf16*>(vs), static_cast<const int*>(page_table),
+      static_cast<const int*>(positions), static_cast<const int*>(pad),
+      static_cast<const int*>(start), static_cast<float*>(out), C, NP, page, nsub, Kh, G, Dh,
+      Gs, pos, softcap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dh in 1 .. 256 (the tensor-core kernels: a sub-page of 1 ..
+// max_sub(width) slots) or 257 .. WIDE_MAX_DH (the wide route: any
+// sub-page), nsub sub-pages a page of the table (NP, the row's sub-pages,
+// a multiple of nsub).
 bool supported(int Dh, int page, int nsub, int NP) {
-  return Dh >= 1 && Dh <= 256 && page >= 1 && page <= max_sub(width_of(Dh)) && nsub >= 1 &&
-         NP % nsub == 0;
+  return Dh >= 1 && Dh <= WIDE_MAX_DH && page >= 1 &&
+         (Dh > 256 || page <= max_sub(width_of(Dh))) && nsub >= 1 && NP % nsub == 0;
 }
 
 template <int DH, bool FULL, bool NARROW>
@@ -942,7 +1095,8 @@ int launch_prefill(const void* q, const void* kc, const void* ks, const void* vc
 // `nsub` of them a page of the table (B, NP / nsub); NP counts a row's
 // sub-pages.  `positions` (B,) may be null: every row at `pos`.  `pad`
 // (B,) may be null: no left pad.  `scratch` holds B*Kh*NP*G*(width(Dh) + 2)
-// floats.  Two kernels: the sub-page partials, the fold.
+// floats.  Two kernels: the sub-page partials, the fold; above 256 columns
+// one, the wide route, which needs no scratch.
 extern "C" int paged_flash_decode(const void* q, const void* k_codes, const void* k_scale,
                                   const void* v_codes, const void* v_scale,
                                   const void* page_table, const void* positions,
@@ -951,6 +1105,10 @@ extern "C" int paged_flash_decode(const void* q, const void* k_codes, const void
                                   float softcap, float scale, void* stream) {
   if (!supported(Dh, page, nsub, NP)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dh > 256)
+    return launch_wide(q, k_codes, k_scale, v_codes, v_scale, page_table, positions, pad,
+                       nullptr, out, B, 1, NP, page, nsub, Kh, G, Dh, Gs, pos, softcap, scale,
+                       st);
 #define XRNPE_DECODE(DH, FULL, NARROW)                                                     \
   launch_decode<DH, FULL, NARROW>(q, k_codes, k_scale, v_codes, v_scale, page_table, positions,   \
                           pad, scratch, out, B, NP, page, nsub, Kh, G, Dh, Gs, pos, softcap, \
@@ -968,6 +1126,9 @@ extern "C" int paged_flash_prefill(const void* q, const void* k_codes, const voi
                                    int Dh, int Gs, float softcap, float scale, void* stream) {
   if (!supported(Dh, page, nsub, NP)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dh > 256)
+    return launch_wide(q, k_codes, k_scale, v_codes, v_scale, page_table, nullptr, nullptr,
+                       start, out, B, C, NP, page, nsub, Kh, G, Dh, Gs, 0, softcap, scale, st);
 #define XRNPE_PREFILL(DH, FULL, NARROW)                                                    \
   launch_prefill<DH, FULL, NARROW>(q, k_codes, k_scale, v_codes, v_scale, page_table, start, out,  \
                            B, C, NP, page, nsub, Kh, G, Dh, Gs, softcap, scale, st)

@@ -26,7 +26,12 @@ bitwise.  The kernels take any Dh in 1..256 (instantiated at widths 32,
 columns) and pages (KV blocks) of any size: a page walks as ``s``
 sub-pages of ``sub_page(page, dh)`` slots, the largest divisor of the
 page that fits a kernel (128 slots, 64 at widths above 128), so a
-256-slot page gives the bits of two 128-slot pages.
+256-slot page gives the bits of two 128-slot pages.  A head of 257 ..
+``WIDE_MAX_DH`` columns takes the wide route of the same entry points
+(``wide_route(dh)``): a SIMT kernel, one block per query row, that
+folds the row's slots one by one in position order, so the same two
+bitwise invariants hold there (``wide_route.launches`` counts its
+launches beside each wrapper's own count).
 
 The plain versions are the twins of the reference's blocked XLA loops
 (``repro.models.attention.decode_quantized_blocks``,
@@ -52,7 +57,7 @@ from .ref import dequant_kv_ref, no_tf32
 __all__ = ["flash_decode", "flash_decode_plain", "paged_flash_decode",
            "paged_flash_decode_plain", "paged_flash_prefill",
            "paged_flash_prefill_plain", "default_kv_block", "kernel_width",
-           "sub_page"]
+           "sub_page", "wide_route"]
 
 _NEG_INF = -1e30
 
@@ -186,17 +191,32 @@ _ARGTYPES = {
 KERNEL_WIDTHS = (32, 64, 128, 256)   # the .cu's instantiations (width_of)
 MAX_SUB = 128        # most slots of a sub-page the kernels walk (MAXP)
 MAX_SUB_WIDE = 64    # ... at a width above 128 (MAXP_WIDE)
-MAX_DH = KERNEL_WIDTHS[-1]
+MAX_DH = KERNEL_WIDTHS[-1]           # the tensor-core kernels' widest head
+WIDE_MAX_DH = 4096   # the wide route's widest head (WIDE_MAX_DH in the .cu)
+
+
+def wide_route(dh: int) -> bool:
+    """Whether a head of ``dh`` columns takes the wide route (the SIMT
+    slot walk, 256 < Dh <= ``WIDE_MAX_DH``) and not the tensor-core page
+    partials; ``wide_route.launches`` counts the wide route's launches."""
+    return dh > MAX_DH
+
+
+wide_route.launches = 0
 
 
 def kernel_width(dh: int) -> int:
-    """The instantiated width a head of ``dh`` columns runs on."""
+    """The instantiated width a head of ``dh`` columns runs on (the
+    tensor-core route)."""
     return next(w for w in KERNEL_WIDTHS if dh <= w)
 
 
 def sub_page(page: int, dh: int) -> int:
     """Slots of the sub-pages the kernels walk a page of ``page`` slots
-    as: its largest divisor that fits a kernel at ``dh``'s width."""
+    as: its largest divisor that fits a kernel at ``dh``'s width (the
+    whole page on the wide route, which walks slots)."""
+    if wide_route(dh):
+        return page
     cap = MAX_SUB if kernel_width(dh) <= 128 else MAX_SUB_WIDE
     return next(d for d in range(min(page, cap), 0, -1) if page % d == 0)
 
@@ -238,11 +258,12 @@ def _cuda_operands(q, named, index_names=()):
 
 
 def _check_kernel_shape(name: str, dh: int, page: int) -> None:
-    """Raises for what the CUDA kernels do not take: Dh outside 1..256, or
-    a page (KV block) of no slot."""
-    if not 1 <= dh <= MAX_DH or page < 1:
-        raise ValueError(f"{name} on the card takes Dh in 1..{MAX_DH} and "
-                         f"a page of at least 1 slot, not Dh={dh}, "
+    """Raises for what the CUDA kernels do not take: Dh outside
+    1..``WIDE_MAX_DH`` (the wide route's shared memory holds q and O of
+    at most that many columns), or a page (KV block) of no slot."""
+    if not 1 <= dh <= WIDE_MAX_DH or page < 1:
+        raise ValueError(f"{name} on the card takes Dh in 1..{WIDE_MAX_DH} "
+                         f"and a page of at least 1 slot, not Dh={dh}, "
                          f"page={page}")
 
 
@@ -256,13 +277,15 @@ def _decode_cuda(q, k_codes, k_scale, v_codes, v_scale, page: int,
     ``pos``; a null ``pad`` means no left pad.  Counts nothing: the
     wrappers count their own launches.  The kernels walk each page as
     ``page // sub`` sub-pages of ``sub_page(page, dh)`` slots, and keep a
-    partial of the kernel's width for each."""
+    partial of the kernel's width for each (the wide route keeps none)."""
     b, kh, g, dh = q.shape
     _check_kernel_shape("decode", dh, page)
     sub = sub_page(page, dh)
     nsub = page // sub
-    scratch = torch.empty(b * kh * n_pages * nsub * g * (kernel_width(dh) + 2),
-                          dtype=torch.float32, device=q.device)
+    wide = wide_route(dh)
+    scratch = torch.empty(
+        0 if wide else b * kh * n_pages * nsub * g * (kernel_width(dh) + 2),
+        dtype=torch.float32, device=q.device)
     out = torch.empty((b, kh, g, dh), dtype=torch.float32, device=q.device)
     ptr = [None if x is None else x.data_ptr()
            for x in (page_table, positions, pad)]
@@ -274,6 +297,7 @@ def _decode_cuda(q, k_codes, k_scale, v_codes, v_scale, page: int,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode launch failed: CUDA error {err}")
+    wide_route.launches += wide
     return out
 
 
@@ -404,6 +428,7 @@ def paged_flash_prefill(q: torch.Tensor, k_codes: torch.Tensor,
         raise RuntimeError(f"paged_flash_prefill launch failed: CUDA error "
                            f"{err}")
     paged_flash_prefill.launches += 1
+    wide_route.launches += wide_route(dh)
     return out
 
 

@@ -26,13 +26,17 @@ __all__ = ["no_tf32", "dequant_ref", "rmmec_matmul_ref", "quire_dot_ref",
 
 @contextlib.contextmanager
 def no_tf32():
-    """Full-precision float32 matrix products inside the block."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+    """Full-precision float32 matrix products and convolutions inside the
+    block (cuDNN's convolutions default to TF32)."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def _expand_scales(scales: torch.Tensor, k_rows: int) -> torch.Tensor:

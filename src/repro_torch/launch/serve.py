@@ -1,5 +1,6 @@
-"""Serving CLI of the port: static batched generation, or continuous
-batching over the paged posit8 KV pool, with the packed weight plane.
+"""Serving CLI of the port: static batched generation, continuous
+batching over the paged posit8 KV pool, or disaggregated prefill/decode
+serving, with the packed weight plane.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
       --policy mixed --batch 8 --prompt-len 128 --steps 32 --quantized-kv
@@ -14,6 +15,14 @@ one-page preamble served from the pool's prefix cache, and
 
   ... --continuous --batch 8 --n-pages 48 [--page-size 16]
       [--prefill-chunk 16] [--prefix-cache] [--decode-steps 4]
+
+``--disagg`` serves the same mix through ``DisaggEngine`` instead: a
+prefill worker (admission + chunk budget) and a decode worker over two
+pools of ``--n-pages`` pages each, joined by a double-buffered posit8
+page-handoff channel; the host issues each prefill step while the card
+runs the decode dispatch before it.
+
+  ... --disagg --batch 8 --n-pages 48 --prefill-chunk 16 --decode-steps 4
 
 It runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path
 (use ``--reduced`` there).  Weights are random, drawn from ``--seed``.
@@ -31,6 +40,7 @@ from .. import resolve_device
 from ..configs import get_config
 from ..core.policy import PrecisionPolicy
 from ..models import zoo
+from ..serve.disagg import DisaggEngine
 from ..serve.engine import ContinuousEngine, ServeEngine
 
 
@@ -65,13 +75,19 @@ def _continuous(args, cfg, params, policy, device) -> None:
     for unit in (args.prefill_chunk, page_size):
         if unit and max_len % unit:
             max_len += unit - max_len % unit
-    eng = ContinuousEngine(
-        cfg, params, n_pages=args.n_pages, page_size=page_size,
-        max_batch=args.batch, max_len=max_len, policy=policy,
-        temperature=args.temperature, seed=args.seed,
-        prefill_chunk_tokens=args.prefill_chunk,
-        prefix_cache=args.prefix_cache, decode_steps=args.decode_steps,
-        device=device)
+    common = dict(page_size=page_size, max_batch=args.batch,
+                  max_len=max_len, policy=policy,
+                  temperature=args.temperature, seed=args.seed,
+                  prefill_chunk_tokens=args.prefill_chunk,
+                  prefix_cache=args.prefix_cache,
+                  decode_steps=args.decode_steps)
+    if args.disagg:
+        eng = DisaggEngine(cfg, params, prefill_pages=args.n_pages,
+                           decode_pages=args.n_pages, prefill_device=device,
+                           decode_device=device, **common)
+    else:
+        eng = ContinuousEngine(cfg, params, n_pages=args.n_pages,
+                               device=device, **common)
     preamble = rng.integers(0, cfg.vocab, (eng.page_size,)) \
         if args.prefix_cache else None
     rids = []
@@ -88,19 +104,29 @@ def _continuous(args, cfg, params, policy, device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    sched = eng.scheduler
-    toks = sum(len(sched.finished[r].generated) for r in rids)
+    finished = eng.finished if args.disagg else eng.scheduler.finished
+    sched = eng.prefill.scheduler if args.disagg else eng.scheduler
+    toks = sum(len(finished[r].generated) for r in rids)
     print(f"served {len(rids)} requests / {toks} tokens in {dt:.2f}s "
           f"({toks / dt:.1f} tok/s) over {eng.steps_run} engine steps on "
           f"{device}")
     print(f"decode loop: K={eng.decode_steps}, {eng.decode_dispatches} "
           f"dispatches, {eng.page_table_uploads} page-table uploads, "
           f"{eng.token_host_bytes} token bytes to host")
-    print(f"pool: {eng.pool.n_pages} pages x {eng.pool.page_size} slots, "
-          f"peak used {eng.pool.alloc_peak}, preemptions "
-          f"{sched.preemption_count} (mid-prefill "
-          f"{sched.prefill_preemptions}, wasted prefill tokens "
-          f"{sched.wasted_prefill_tokens})")
+    if args.disagg:
+        print(f"disagg: {eng.handoffs} handoffs / {eng.handoff_pages} pages "
+              f"/ {eng.handoff_bytes} posit8 bytes over the channel (depth "
+              f"{eng.channel.depth}), {eng.decode_bounces} decode-side "
+              f"bounces; pools prefill {eng.prefill.pool.n_pages} (peak "
+              f"{eng.prefill.pool.alloc_peak}) / decode "
+              f"{eng.decode.pool.n_pages} (peak "
+              f"{eng.decode.pool.alloc_peak}) x {eng.page_size} slots")
+    else:
+        print(f"pool: {eng.pool.n_pages} pages x {eng.pool.page_size} "
+              f"slots, peak used {eng.pool.alloc_peak}, preemptions "
+              f"{sched.preemption_count} (mid-prefill "
+              f"{sched.prefill_preemptions}, wasted prefill tokens "
+              f"{sched.wasted_prefill_tokens})")
     chunk = eng.prefill_chunk_tokens
     print(f"prefill: {f'chunked, {chunk} tokens/step' if chunk else 'monolithic'}"
           f" ({eng.prefill_context} context), {eng.prefill_tokens_computed} "
@@ -111,7 +137,7 @@ def _continuous(args, cfg, params, policy, device) -> None:
               f"served from shared pages, {len(px)} pages cached, "
               f"{px.evictions} evictions")
     for r in rids[:2]:
-        print(f"  req {r}: {np.asarray(sched.finished[r].generated)}")
+        print(f"  req {r}: {np.asarray(finished[r].generated)}")
 
 
 def main() -> None:
@@ -133,8 +159,14 @@ def main() -> None:
                     help="cuda (default) or cpu")
     ap.add_argument("--continuous", action="store_true",
                     help="serve through the paged-KV ContinuousEngine")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated prefill/decode serving: a prefill "
+                         "worker and a decode worker joined by a posit8 "
+                         "page-handoff channel (implies paged serving; "
+                         "each side gets its own --n-pages pool)")
     ap.add_argument("--n-pages", type=int, default=48,
-                    help="paged pool size (allocatable pages)")
+                    help="paged pool size (allocatable pages; per side "
+                         "under --disagg)")
     ap.add_argument("--page-size", type=int, default=None,
                     help="tokens per page (default: the decode KV block, "
                          "or --prefill-chunk when that is set)")
@@ -159,7 +191,7 @@ def main() -> None:
     if args.policy not in ("fp32", "none"):
         policy = (PrecisionPolicy.paper_mixed() if args.policy == "mixed"
                   else PrecisionPolicy.uniform(args.policy))
-    if args.continuous:
+    if args.continuous or args.disagg:
         _continuous(args, cfg, params, policy, device)
     else:
         _static(args, cfg, params, policy, device, gen)

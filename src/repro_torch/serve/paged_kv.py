@@ -36,9 +36,13 @@ page_size``) that start at page boundaries, so ``write_chunk`` is a pure
 page scatter and a half-prefilled request frees its pages with no
 partial-page state to unwind.
 
+Disaggregated serving moves whole pages between two pools:
+``export_pages`` gathers a request's posit8 codes and bf16 scales into a
+detached payload, and ``import_pages`` scatters one into another pool's
+pages, bitwise.
+
 Only the dense family pages through this port so far; recurrent state
-slabs and the disaggregated page handoff (``export_pages`` /
-``import_pages``) come with later slices.
+slabs (``export_state`` / ``import_state``) come with a later slice.
 """
 
 from __future__ import annotations
@@ -208,6 +212,36 @@ class PagedKVPool:
             src = cache_q[key][:, 0, :s]                 # (L, S, Kh, X)
             getattr(self, key)[:, idx] = src.reshape(
                 n_layers, nblk, self.page_size, *src.shape[2:])
+
+    # -- page handoff (disaggregated prefill/decode) ------------------------
+
+    def export_pages(self, pages: List[int]) -> Dict[str, torch.Tensor]:
+        """Gather whole pages as a detached payload ``{key: (L, n, page,
+        Kh, X)}`` in logical order: the posit8 codes and po2 group scales
+        the handoff moves.  The gather is a copy queued on the pool's
+        stream, so the caller may free the source pages at once: a later
+        write into them runs after the copy."""
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        return {key: getattr(self, key)[:, idx] for key in POOL_KEYS}
+
+    def import_pages(self, payload: Dict[str, torch.Tensor],
+                     pages: List[int]) -> None:
+        """Scatter an exported payload into this pool's ``pages`` (in
+        place).  The source pool must share this one's geometry (layers,
+        page size, heads, scale groups); the page ids need not match.
+        Codes and scales land bitwise."""
+        leaf = payload["k_codes"]
+        if leaf.shape[0] != self.kv_layers or leaf.shape[1] != len(pages) \
+                or tuple(leaf.shape[2:]) != tuple(self.k_codes.shape[2:]) \
+                or tuple(payload["k_scale"].shape[2:]) \
+                != tuple(self.k_scale.shape[2:]):
+            raise ValueError(
+                f"payload codes {tuple(leaf.shape)} / scales "
+                f"{tuple(payload['k_scale'].shape)} do not fit {len(pages)} "
+                f"pages of this pool {tuple(self.k_codes.shape)}")
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        for key in POOL_KEYS:
+            getattr(self, key)[:, idx] = payload[key].to(self.device)
 
     def gather_request(self, pages: List[int]) -> Dict[str, torch.Tensor]:
         """Read a request's pages back as a contiguous (L, 1, T, Kh, X)

@@ -33,9 +33,15 @@ token blocks (XR traffic repeats a scene/system preamble ahead of every
 query); unreferenced cached pages are evicted LRU, leaf first, before
 any request is preempted.
 
-The reference's snapshot/resume of recurrent-state requests and its
-decode-side ``DecodeRunner`` (disaggregated serving) come with later
-slices of the port.
+DISAGGREGATED SERVING (``serve/disagg.py``): the prefill side's
+``Scheduler`` hands a completed prefill over with ``release`` (its pages
+exported), and takes a request bounced from the decode side back at the
+queue front with ``reaccept``.  ``DecodeRunner`` is the decode side's
+half: accepted handoffs, horizon claims on the decode pool, bouncing the
+youngest request when that pool runs dry, retirement.
+
+The reference's snapshot/resume of recurrent-state requests comes with a
+later slice of the port.
 """
 
 from __future__ import annotations
@@ -49,8 +55,8 @@ import numpy as np
 from ..obs import NULL_RECORDER, MetricRegistry, bind_counters
 from .paged_kv import PagedKVPool
 
-__all__ = ["Request", "Scheduler", "PrefixIndex", "WAITING", "PREFILLING",
-           "RUNNING", "FINISHED"]
+__all__ = ["Request", "Scheduler", "PrefixIndex", "DecodeRunner", "WAITING",
+           "PREFILLING", "RUNNING", "FINISHED"]
 
 WAITING = "waiting"
 PREFILLING = "prefilling"
@@ -434,12 +440,145 @@ class Scheduler:
         self.waiting.appendleft(req)
         self.epoch += 1
 
+    def reaccept(self, req: Request) -> None:
+        """Queue-front re-entry of a request BOUNCED back from a decode
+        runner (disaggregated serving): the twin of :meth:`preempt` for a
+        victim whose pages lived in the decode pool, which the runner
+        already freed.  It keeps its generated tokens and re-prefills
+        prompt+generated on re-admission; its whole prefix counts as
+        wasted, as a RUNNING victim's does."""
+        assert req.status == WAITING and not req.pages, \
+            (req.status, req.pages)
+        self.wasted_prefill_tokens += req.position + 1
+        req.preemptions += 1
+        self.preemption_count += 1
+        self.preempted_log.append(req.rid)
+        self.waiting.appendleft(req)
+
     # -- retirement ---------------------------------------------------------
 
     def retire(self, req: Request) -> None:
         """RUNNING -> FINISHED.  ``free`` is a decref: private pages return
         to the pool; published prompt pages stay cached in the index."""
         assert req.status == RUNNING
+        self.pool.free(req.pages)
+        req.pages = []
+        req.status = FINISHED
+        self.running.remove(req)
+        self.finished[req.rid] = req
+        self.retired_log.append(req.rid)
+        self.epoch += 1
+        self._trace.event("RETIRE", rid=req.rid,
+                          generated=len(req.generated))
+
+    # -- page handoff (disaggregated serving) -------------------------------
+
+    def release(self, req: Request) -> None:
+        """Prefill-side end of a page handoff: the request's pages have
+        been exported, so drop this side's references and remove it from
+        the running set -- it stays RUNNING, on the decode side now.
+        Prompt pages published to the prefix index stay cached there."""
+        assert req.status == RUNNING, req.status
+        self.pool.free(req.pages)
+        req.pages = []
+        self.running.remove(req)
+        self.epoch += 1
+
+
+class DecodeRunner:
+    """The decode-side half of disaggregated serving: the decode pool's
+    accounting for RUNNING requests only -- accepted handoffs, K-step
+    horizon claims, retirement on EOS/budget, and the mapping epoch the
+    engine keys its page-table cache on.
+
+    A request only arrives here through an accepted page handoff, already
+    RUNNING with its first token sampled.  When the decode pool runs dry
+    the YOUNGEST accepted request is BOUNCED: its decode pages freed, the
+    request queued on ``bounced`` for the engine to hand back to the
+    admitter (``Scheduler.reaccept``), where it re-prefills
+    prompt+generated.  ``DisaggEngine.submit`` caps a request's total
+    need at the decode pool, so a lone request always fits."""
+
+    _COUNTERS = ("bounce_count",)
+
+    def __init__(self, pool: PagedKVPool, max_batch: int,
+                 registry: Optional[MetricRegistry] = None,
+                 trace=None, namespace: str = "runner"):
+        self.pool = pool
+        self.max_batch = int(max_batch)
+        self.running: List[Request] = []      # acceptance order
+        self.finished: Dict[int, Request] = {}
+        self.bounced: List[Request] = []      # drained by the engine
+        self.retired_log: List[int] = []
+        self.metrics = registry if registry is not None else MetricRegistry()
+        self._trace = trace if trace is not None else NULL_RECORDER
+        bind_counters(self, self.metrics, namespace)
+        self.epoch = 0
+
+    def reset_counters(self) -> None:
+        for c in self._COUNTERS:
+            setattr(self, c, 0)
+        self.retired_log.clear()
+
+    @property
+    def has_slot(self) -> bool:
+        return len(self.running) < self.max_batch
+
+    def accept(self, req: Request, pages: List[int]) -> None:
+        """Take ownership of a handed-off request whose payload has been
+        imported into this pool's ``pages`` (its page-table row here)."""
+        assert self.has_slot and req.status == RUNNING, req.status
+        req.pages = list(pages)
+        self.running.append(req)
+        self.epoch += 1
+
+    def ensure_capacity(self, req: Request, horizon: int = 1) -> bool:
+        """Own every page the next ``horizon`` decode writes land in,
+        bouncing the youngest accepted request when the pool is dry.
+        False if ``req`` itself was bounced."""
+        last = req.position + max(int(horizon), 1) - 1
+        need = last // self.pool.page_size + 1
+        grew = False
+        while need > len(req.pages):
+            got = self.pool.alloc(1)
+            if got is not None:
+                req.pages.extend(got)
+                grew = True
+                continue
+            victim = self.running[-1]         # youngest accepted
+            self.bounce(victim)
+            if victim is req:
+                return False
+        if grew:
+            self.epoch += 1
+        return True
+
+    def bounce(self, req: Request) -> None:
+        """Evict a running request from the decode side: free its pages
+        and reset its prefill cursor, so the admitter re-prefills
+        prompt+generated from chunk 0 (the generated tokens survive)."""
+        assert req.status == RUNNING, req.status
+        req.next_token = -1
+        req.prefilled = 0
+        req.cached_tokens = 0
+        self.pool.free(req.pages)
+        req.pages = []
+        req.status = WAITING
+        self.bounce_count += 1
+        self.running.remove(req)
+        self.bounced.append(req)
+        self.epoch += 1
+        self._trace.event("BOUNCE", rid=req.rid,
+                          generated=len(req.generated))
+
+    def drain_bounced(self) -> List[Request]:
+        out, self.bounced = self.bounced, []
+        return out
+
+    def retire(self, req: Request) -> None:
+        """RUNNING -> FINISHED on the decode side; its pages return to
+        the decode pool the same step."""
+        assert req.status == RUNNING, req.status
         self.pool.free(req.pages)
         req.pages = []
         req.status = FINISHED

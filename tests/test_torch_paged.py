@@ -198,11 +198,12 @@ def test_paged_wrappers_reject_bad_shapes():
     (64, 12, True), (64, 1, True), (64, 2, True), (32, 4, True),
     (128, 127, True), (48, 16, True), (64, 136, True), (64, 0, False),
     (256, 128, True), (112, 128, True), (64, 256, True), (64, 131, True),
-    (40, 8, True), (264, 8, False), (0, 8, False)])
+    (40, 8, True), (264, 8, True), (4096, 300, True), (4097, 8, False),
+    (0, 8, False)])
 def test_kernel_shape_guard(dh, page, ok):
-    """What the CUDA kernels take (Dh in 1..256, a page of any size: one
-    of more than a sub-page's slots walks as sub-pages) is checked in
-    Python before a launch."""
+    """What the CUDA kernels take (Dh in 1..4096: above 256 on the wide
+    route; a page of any size: one of more than a sub-page's slots walks
+    as sub-pages) is checked in Python before a launch."""
     if ok:
         _check_kernel_shape("decode", dh, page)
     else:

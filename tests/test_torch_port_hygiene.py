@@ -47,7 +47,10 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.serve.paged_kv, repro_torch.obs, "
             "repro_torch.core.npe, repro_torch.core.quire, "
             "repro_torch.kernels.codec, repro_torch.kernels.quire_dot, "
-            "repro_torch.benchmarks.run\n"
+            "repro_torch.benchmarks.run, repro_torch.serve.disagg, "
+            "repro_torch.core.qat, repro_torch.core.sensitivity, "
+            "repro_torch.optim, repro_torch.data.vio_data, "
+            "repro_torch.models.perception\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))")

@@ -10,6 +10,9 @@ engine-plane kernels, on the CPU.
 - Static ``generate`` at head_dim 256 and 112 (the reduced qwen2 with the
   head widths of gemma-2b and kimi-k2): prefill logits within the serve
   tests' float32 tolerance and greedy tokens equal to JAX's.
+- Heads wider than 256 columns: the route choice and the wide route's
+  limit held to the ``.cu``; the plain versions at Dh 320 against the
+  reference's blocked loops.
 - ``dequant_plan`` and ``quire_route`` against ``csrc/dequant.cu`` and
   ``csrc/quire_dot.cu``.
 """
@@ -31,6 +34,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 from _torch_bridge import jax_to_numpy  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.core.policy import PrecisionPolicy as JaxPolicy  # noqa: E402
+from repro.models import attention as jA  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402
 from repro.models import zoo as jzoo  # noqa: E402
 from repro.serve.engine import ContinuousEngine as JaxContinuous  # noqa: E402
@@ -42,6 +46,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import codec as kcodec  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import quire_dot as kquire  # noqa: E402
+from repro_torch.models import attention as tA  # noqa: E402
 from repro_torch.models import zoo  # noqa: E402
 from repro_torch.serve.engine import ContinuousEngine, ServeEngine  # noqa: E402
 
@@ -141,6 +146,82 @@ def test_sub_page_is_the_largest_divisor_that_fits(page, dh, sub):
                                       (129, 256), (256, 256)])
 def test_kernel_width(dh, width):
     assert fd.kernel_width(dh) == width
+
+
+# ---------------------------------------------------------------------------
+# the wide route: heads of more than 256 columns
+# ---------------------------------------------------------------------------
+
+def test_wide_route_and_limit_match_the_cuda_source():
+    """Above 256 columns both entry points take the wide route; its limit
+    is the Python one, and q and O of that many columns fit the default
+    48 KB of shared memory (``wide_smem_bytes``, term for term)."""
+    assert _const(FLASH, "WIDE_MAX_DH") == fd.WIDE_MAX_DH >= 1024
+    slots = 2 * _const(FLASH, "WIDE_THREADS") // 32
+    assert "WIDE_SLOTS = 2 * WIDE_WARPS;" in FLASH
+    assert (256 + 2 * fd.WIDE_MAX_DH + slots) * 4 <= 48 * 1024
+    assert "return (256 + 2 * Dh + WIDE_SLOTS) * 4;" in FLASH
+    assert FLASH.count("if (Dh > 256)\n    return launch_wide(") == 2
+    assert "Dh > 256 || page <= max_sub(width_of(Dh))" in FLASH
+
+
+@pytest.mark.parametrize("dh,wide", [(1, False), (64, False), (256, False),
+                                     (257, True), (300, True), (512, True),
+                                     (4096, True)])
+def test_route_choice(dh, wide):
+    assert fd.wide_route(dh) == wide
+    if wide:   # the wide route walks slots: no sub-pages
+        assert fd.sub_page(256, dh) == 256 and fd.sub_page(131, dh) == 131
+    fd._check_kernel_shape("decode", dh, 128)
+
+
+def test_wide_route_limit_is_stated():
+    with pytest.raises(ValueError, match=f"Dh in 1..{fd.WIDE_MAX_DH}"):
+        fd._check_kernel_shape("paged_flash_prefill", fd.WIDE_MAX_DH + 1, 128)
+
+
+def _wide_pool(rng, n, page, kh, dh, group):
+    """A random quantized pool as (jax operands, torch operands)."""
+    jpool, tpool = [], []
+    for s in (3.0, 1.0):
+        x = (rng.normal(size=(n, page, kh, dh)) * s).astype(np.float32)
+        jc, js = jA.quantize_kv(jnp.asarray(x), group)
+        jpool += [jc, js]
+        tpool += list(tA.quantize_kv(torch.from_numpy(x), group))
+    return jpool, tpool
+
+
+@pytest.mark.parametrize("case,group", [("decode", None), ("decode", 32),
+                                        ("prefill", None), ("prefill", 32)])
+def test_wide_head_plain_matches_reference_blocked_loops(case, group):
+    """Dh 320 (the wide route on the card): the plain versions against the
+    reference's blocked XLA loops, which its engines run by default."""
+    b, page, npp, kh, g, dh = 2, 16, 3, 2, 2, 320
+    rng = np.random.default_rng(11)
+    jpool, tpool = _wide_pool(rng, b * npp + 1, page, kh, dh, group)
+    pt = rng.permutation(np.arange(1, b * npp + 1)).reshape(b, npp) \
+        .astype(np.int32)
+    jcache = dict(zip(("k_codes", "k_scale", "v_codes", "v_scale"), jpool))
+    if case == "decode":
+        q = rng.normal(size=(b, kh, g, dh)).astype(np.float32)
+        pos = np.asarray([20, 47], np.int32)
+        want = jA.paged_decode_blocked(jnp.asarray(q), jcache,
+                                       jnp.asarray(pt), jnp.asarray(pos),
+                                       30.0)
+        got = fd.paged_flash_decode(torch.from_numpy(q), *tpool,
+                                    torch.from_numpy(pt),
+                                    torch.from_numpy(pos), 30.0)
+    else:
+        q = rng.normal(size=(b, 16, kh, g, dh)).astype(np.float32)
+        pos = np.asarray([0, 16], np.int32)
+        want = jA.paged_prefill_blocked(jnp.asarray(q), jcache,
+                                        jnp.asarray(pt), jnp.asarray(pos),
+                                        30.0)
+        got = fd.paged_flash_prefill(torch.from_numpy(q), *tpool,
+                                     torch.from_numpy(pt),
+                                     torch.from_numpy(pos), 30.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)
 
 
 # ---------------------------------------------------------------------------
