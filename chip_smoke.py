@@ -69,6 +69,32 @@ and, for continuous batching over the paged posit8 KV pool:
       the serving CLI with ``--continuous --prefill-chunk 256`` (its page
       is the chunk) on the card;
 
+and, for the recurrent, hybrid and MoE families (posit8 state slabs):
+
+  3d. rwkv6-1.6b at full size (24 layers, d=2048, vocab 65536),
+      ``paper_mixed``, 8 requests of 64-256 prompt tokens and 32 new
+      ones, 128-token chunks: per-request static ``generate`` with
+      posit8 state, ``ContinuousEngine`` at K=1 and K=4, K=1 on 3 state
+      slabs for 8 batch slots (slab-gated admission), ``DisaggEngine`` at
+      K=4 and at K=1 with one forced bounce (snapshot and resume): every
+      run's tokens equal the static ones, exact launch counts (0
+      attention), ``export_state`` bytes == ``state_slab_bytes``; ms per
+      forward / decode iteration, the static step's device-busy share,
+      peak memory;
+  3e. jamba-v0.1 at full width, depth 8 (one group: 7 Mamba, 1 attention,
+      4 MoE of 16 experts top-2, 4 dense SwiGLU layers; MoE capacity 8.0),
+      weights drawn and packed block by block on the card: every expert
+      format's slices through ``dequant`` == ``to_dense`` bitwise, then
+      3d's runs on 6 requests of 16 new tokens (traffic cut for time)
+      plus K=1 on 8 KV pages (a running request preempted and
+      resumed from its snapshot), exact launch counts (``flash_decode``
+      per static step, ``paged_flash_decode`` per iteration, ``dequant``
+      per expert slice);
+  4c. reduced rwkv6, jamba and kimi-k2 in float32 (``paper_mixed``), card
+      against CPU: prefill logits within 1e-4, greedy tokens equal, posit8
+      state codes equal but for values straddling a rounding boundary
+      (counted);
+
 and, for the paper's SIMD-MAC engine plane:
 
   2c. ``dequant`` bit for bit against its plain version for every format
@@ -489,6 +515,31 @@ def phase_flash(summary, fails) -> None:
                 max_err = max(max_err, err)
                 tag = (f"T={t_small} blk={default_kv_block(t_small)} "
                        f"group={group} pos={pos} pad=True softcap=20.0")
+                log(f"[flash] {tag} max_abs_err={err:.3e} vs plain, "
+                    f"{err_n:.3e} vs naive (tol {FLASH_ATOL}) "
+                    f"{'ok' if ok else 'MISS'}")
+                if not ok:
+                    fails.append(f"flash {tag}")
+    # jamba-v0.1's attention layer as phase 3e's static engine runs it:
+    # Kh=8, G=4, Dh=128, a 384-slot cache (blocks of 128), B=1 and B=8
+    for bj in (1, 8):
+        kv = torch.randn((2, bj, 384, 8, 128), generator=gen, device="cuda")
+        for group in (None, 32):
+            kc, ks = quantize_kv(kv[0], group)
+            vc, vs = quantize_kv(kv[1], group)
+            q = torch.randn((bj, 8, 4, 128), generator=gen, device="cuda")
+            for pos in (0, 127, 128, 300, 383):
+                got = flash_decode(q, kc, ks, vc, vs, pos)
+                want = flash_decode_plain(q, kc, ks, vc, vs, pos)
+                naive = ref.flash_decode_ref(q, kc, ks, vc, vs, pos)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                err_n = (got - naive).abs().max().item()
+                ok = err <= FLASH_ATOL and err_n <= FLASH_ATOL \
+                    and torch.isfinite(got).all().item()
+                max_err = max(max_err, err)
+                tag = (f"jamba Kh=8 G=4 Dh=128 B={bj} T=384 "
+                       f"blk={default_kv_block(384)} group={group} pos={pos}")
                 log(f"[flash] {tag} max_abs_err={err:.3e} vs plain, "
                     f"{err_n:.3e} vs naive (tol {FLASH_ATOL}) "
                     f"{'ok' if ok else 'MISS'}")
@@ -950,8 +1001,9 @@ def phase_paged(summary, fails) -> None:
 
     # head widths other than 64 at page 128: gemma-2b's attention (Kh=1,
     # G=8, Dh=256: 64-slot sub-pages), 112 (kimi-k2's width, on the
-    # 128-wide kernel) and 40 (on the 64-wide kernel, staged byte by byte)
-    for wkh, wg, wdh in ((1, 8, 256), (2, 7, 112), (2, 7, 40)):
+    # 128-wide kernel), 40 (on the 64-wide kernel, staged byte by byte)
+    # and jamba-v0.1's attention layer (Kh=8, G=4, Dh=128: phase 3e)
+    for wkh, wg, wdh in ((1, 8, 256), (2, 7, 112), (2, 7, 40), (8, 4, 128)):
         wpool = _paged_pool(gen, n_pages + 1, page, wkh, wdh, None)
         wpt = torch.tensor(rng.permutation(np.arange(1, n_pages + 1))
                            .reshape(b, npp), dtype=torch.int32, device="cuda")
@@ -1525,6 +1577,410 @@ def profile_continuous(cfg, params, kw, reqs, warm_steps: int = 4,
 
 
 # ---------------------------------------------------------------------------
+# phases 3d / 3e: recurrent and hybrid serving at full width
+# ---------------------------------------------------------------------------
+
+def _stateful_traffic(vocab: int, n: int, new: int, seed: int):
+    """``n`` requests from numpy ``seed``: prompts of 64-256 tokens,
+    ``new`` new tokens each."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, int(rng.integers(64, 257))), new)
+            for _ in range(n)]
+
+
+def _per_forward(params, cfg):
+    """(RMMEC, dequant) launches of one forward of ``cfg`` under its
+    packed ``params``: one RMMEC per packed 2-D weight a layer reads (and
+    the read-out), one dequant per expert slice of a packed expert
+    stack."""
+    from repro_torch.kernels.ops import PackedTensor
+    rmmec = dequant = 0
+
+    def walk(node, path, per):
+        nonlocal rmmec, dequant
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}", per)
+        elif isinstance(node, PackedTensor):
+            if "/experts/" in path:
+                dequant += per * node.words.shape[-3]
+            else:
+                rmmec += per
+    for top, sub in params.items():
+        if top in ("layers", "groups"):
+            walk(sub, top, cfg.n_layers if top == "layers"
+                 else cfg.n_layers // cfg.attn_every)
+        else:
+            walk(sub, top, 1)
+    return rmmec, dequant
+
+
+def _counted(fn):
+    """(result, wall s, launches) of ``fn`` with every counter at 0."""
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, \
+        {n: c.launches for n, c in counters.items()}
+
+
+def _drain(eng, reqs, bounce=False):
+    """Submit every request and step to the end; ``bounce``: once a
+    request decodes on a disaggregated engine's decode side, bounce the
+    youngest.  Returns ({request index: tokens}, most requests running
+    at once)."""
+    disagg = hasattr(eng, "decode")
+    sched = eng.prefill.scheduler if disagg else eng.scheduler
+    rids = [eng.submit(p, n) for p, n in reqs]
+    peak, bounced = 0, False
+    while eng.has_work if disagg else sched.has_work:
+        eng.step()
+        running = eng.decode.runner.running if disagg else sched.running
+        peak = max(peak, len(running))
+        if bounce and not bounced:
+            run = [r for r in running if not r.done]
+            if run:
+                eng.decode.runner.bounce(run[-1])
+                bounced = True
+    fin = eng.finished if disagg else sched.finished
+    return {i: fin[r].output for i, r in enumerate(rids)}, peak
+
+
+def _leaf_paths(tree, path=""):
+    """{"/a/b": leaf} of a nested dict (a PackedTensor is one leaf)."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k in sorted(tree)
+                for k2, v2 in _leaf_paths(tree[k], f"{path}/{k}").items()}
+    return {path: tree}
+
+
+def _rmmec_path_cases(tag, params, summary, fails) -> None:
+    """Every packed projection of ``params`` (not the expert stacks,
+    which decode through ``dequant``): its first layer's slice through
+    the kernel against the plain version at M = 1, 8 (decode), 128 (a
+    prefill chunk) and 256 (a whole static prompt), bf16 activations as
+    the path gives them."""
+    from repro_torch.kernels.ops import PackedTensor
+    from repro_torch.kernels.rmmec_matmul import (launch_plan, rmmec_matmul,
+                                                  rmmec_matmul_plain)
+    gen = torch.Generator("cuda").manual_seed(7)
+    seen = set()
+    worst = 0.0
+    for path, t in _leaf_paths(params).items():
+        if not isinstance(t, PackedTensor) or "/experts/" in path:
+            continue
+        while t.words.dim() > 2:
+            t = t[0]
+        k, n = t.shape
+        key = (t.spec.name, t.group, k, n, tuple(t.words.shape))
+        if key in seen:
+            continue
+        seen.add(key)
+        for m in (1, 8, 128, 256):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            got = rmmec_matmul(x, t.words, t.scales, t.mask, t.spec, n)
+            want = rmmec_matmul_plain(x, t.words, t.scales, t.spec, n)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = RMMEC_RTOL * want.abs().max().item()
+            ok = err <= tol and torch.isfinite(got).all().item()
+            worst = max(worst, err)
+            route = launch_plan(m, k, n, x.dtype, t.spec.bits).route
+            log(f"[{tag}] rmmec {path} {t.spec.name} g={t.group} M={m} "
+                f"K={k} N={n} route={route}: max_abs_err={err:.3e} (tol "
+                f"{tol:.3e}) {'ok' if ok else 'MISS'}")
+            if not ok:
+                fails.append(f"{tag} rmmec {path} M={m}")
+    summary["rmmec_matmul"]["max_abs_err"] = max(
+        summary["rmmec_matmul"]["max_abs_err"], worst)
+
+
+def phase_stateful(summary, fails, tag, cfg, params, reqs, n_pages,
+                   preempt_pages=None) -> None:
+    """One recurrent or hybrid config at full width: per-request static
+    ``generate(quantized_state=True)``, then ``ContinuousEngine`` at K=1
+    and K=4, K=1 on 3 state slabs for ``max_batch`` 8 (slab-gated
+    admission), K=1 on ``preempt_pages`` KV pages (a running request is
+    preempted and resumed from its snapshot), ``DisaggEngine`` at K=4 and
+    at K=1 with one forced bounce.  The slab-gated and bounce runs serve
+    the first 4 requests (more than the 3 slabs), the others all of them.
+    Every run's tokens equal the static ones; launch counts are exact."""
+    from repro_torch.obs import TraceRecorder
+    from repro_torch.serve.disagg import DisaggEngine
+    from repro_torch.serve.engine import ContinuousEngine, ServeEngine
+    from repro_torch.serve.paged_kv import state_slab_bytes
+    smi = card()
+    new = reqs[0][1]
+    max_len = -(-(max(len(p) for p, _ in reqs) + new) // 128) * 128
+    rm_fwd, dq_fwd = _per_forward(params, cfg)
+    attn = cfg.n_attn_layers if cfg.family == "hybrid" else 0
+    log(f"[{tag}] per forward: {rm_fwd} rmmec_matmul, {dq_fwd} dequant, "
+        f"{attn} attention launches; slab {state_slab_bytes(cfg)} bytes")
+    _rmmec_path_cases(tag, params, summary, fails)
+
+    # static oracle, one request at a time
+    st = ServeEngine(cfg, params, max_len=max_len, quantized_kv=True,
+                     quantized_state=True)
+    st.generate(reqs[0][0][None], 2)                 # warm-up
+    want, wall, launches = _counted(lambda: {
+        i: st.generate(p[None], n)[0] for i, (p, n) in enumerate(reqs)})
+    fwd = sum(1 + n for _, n in reqs)
+    steps = sum(n for _, n in reqs)
+    expect = {"rmmec_matmul": rm_fwd * fwd, "dequant": dq_fwd * fwd,
+              "flash_decode": attn * steps, "paged_flash_decode": 0,
+              "paged_flash_prefill": 0, "quire_dot": 0}
+    stats = {"static": dict(wall_s=wall, forwards=fwd,
+                            ms_per_forward=wall / fwd * 1e3)}
+    log(f"[{tag}] {smi}, static per request: wall {wall:.2f} s, {fwd} "
+        f"forwards ({wall / fwd * 1e3:.2f} ms each); launches {launches}, "
+        f"expected {expect}")
+    for name, n in expect.items():
+        if launches[name] != n:
+            fails.append(f"{tag} static: {name} launched {launches[name]} "
+                         f"times, expected {n}")
+    for i, (p, n) in enumerate(reqs):
+        o = want[i]
+        if len(o) != len(p) + n or o.min() < 0 or o.max() >= cfg.vocab:
+            fails.append(f"{tag} static: request {i} output {o.shape}")
+    # a decode step's cost does not depend on the prompt (the state is
+    # fixed-size): profile it behind a 16-token one
+    profile_decode(st, reqs[0][0][None, :16], wall / fwd * 1e3, steps=4)
+
+    kw = dict(page_size=128, max_batch=8, max_len=max_len,
+              prefill_chunk_tokens=128)
+    runs = [("K=1", ContinuousEngine, dict(n_pages=n_pages, decode_steps=1),
+             reqs),
+            ("K=4", ContinuousEngine, dict(n_pages=n_pages, decode_steps=4),
+             reqs),
+            ("K=1 3 slabs", ContinuousEngine,
+             dict(n_pages=n_pages, decode_steps=1, n_state_slabs=3), reqs[:4]),
+            ("disagg K=4", DisaggEngine,
+             dict(prefill_pages=n_pages, decode_pages=n_pages,
+                  decode_steps=4), reqs),
+            ("disagg K=1 bounce", DisaggEngine,
+             dict(prefill_pages=n_pages, decode_pages=n_pages,
+                  decode_steps=1), reqs[:4])]
+    if preempt_pages is not None:
+        runs.insert(3, (f"K=1 {preempt_pages} pages", ContinuousEngine,
+                        dict(n_pages=preempt_pages, decode_steps=1), reqs))
+    for run, cls, extra, sub in runs:
+        rec = TraceRecorder()
+        eng = cls(cfg, params, trace=rec, sync_guard=True, **kw, **extra)
+        torch.cuda.reset_peak_memory_stats()
+        (out, peak), wall, launches = _counted(
+            lambda: _drain(eng, sub, bounce=run.endswith("bounce")))
+        k = extra["decode_steps"]
+        iters = eng.decode_dispatches * k
+        chunks = rec.count("PREFILL_CHUNK")
+        dec_ms = sum(e["dur"] for n in ("decode_dispatch", "decode_sync")
+                     for e in rec.events(n)) * 1e3
+        sched = eng.prefill.scheduler if cls is DisaggEngine \
+            else eng.scheduler
+        pool = eng.decode.pool if cls is DisaggEngine else eng.pool
+        stt = dict(wall_s=wall, decode_iterations=iters,
+                   prefill_chunks=chunks,
+                   ms_per_decode_iteration=dec_ms / max(iters, 1),
+                   preemptions=sched.preemption_count,
+                   requests=len(sub), resumes=rec.count("RESUME"),
+                   most_running=peak,
+                   slab_alloc_peak=pool.slab_alloc_peak,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if cls is DisaggEngine:
+            stt.update(handoffs=eng.handoffs, handoff_bytes=eng.handoff_bytes,
+                       bounces=eng.decode_bounces)
+        stats[run] = stt
+        log(f"[{tag}] {smi}, {run}: " + json.dumps(stt))
+        fwd = iters + chunks
+        expect = {"rmmec_matmul": rm_fwd * fwd, "dequant": dq_fwd * fwd,
+                  "flash_decode": 0, "paged_flash_decode": attn * iters,
+                  "paged_flash_prefill": 0, "quire_dot": 0}
+        log(f"[{tag}] {run} launches {launches}, expected {expect}")
+        for name, n in expect.items():
+            if launches[name] != n:
+                fails.append(f"{tag} {run}: {name} launched "
+                             f"{launches[name]} times, expected {n}")
+            if run == "K=1" and n:
+                summary[name][f"launches_{tag}"] = launches[name]
+        differ = [i for i in out if not np.array_equal(out[i], want[i])]
+        log(f"[{tag}] {run}: tokens equal the static ones for all "
+            f"{len(out)} requests served: {not differ}")
+        if differ:
+            fails.append(f"{tag} {run}: tokens differ from static for "
+                         f"requests {differ}")
+        if run == "K=1 3 slabs" and (peak > 3 or pool.slab_alloc_peak != 3):
+            fails.append(f"{tag} {run}: {peak} running at once, slab peak "
+                         f"{pool.slab_alloc_peak}")
+        if run.endswith("pages") and (sched.preemption_count < 1
+                                      or stt["resumes"] < 1):
+            fails.append(f"{tag} {run}: {sched.preemption_count} "
+                         f"preemptions, {stt['resumes']} snapshot resumes")
+        if run.endswith("bounce") and (eng.decode_bounces != 1
+                                       or stt["resumes"] != 1):
+            fails.append(f"{tag} {run}: {eng.decode_bounces} bounces, "
+                         f"{stt['resumes']} resumes")
+        if pool.used_slabs:
+            fails.append(f"{tag} {run}: {pool.used_slabs} slabs in use "
+                         f"after draining")
+        if run == "K=1":
+            sl = pool.alloc_slab()
+            got = sum(v.numel() * v.element_size()
+                      for v in _leaf_paths(pool.export_state(sl)).values())
+            pool.free_slab(sl)
+            log(f"[{tag}] export_state bytes {got}, state_slab_bytes "
+                f"{state_slab_bytes(cfg)}")
+            if got != state_slab_bytes(cfg):
+                fails.append(f"{tag}: export_state holds {got} bytes, "
+                             f"state_slab_bytes says {state_slab_bytes(cfg)}")
+    summary[tag] = stats
+
+
+def phase_rwkv(summary, fails) -> None:
+    """Phase 3d: rwkv6-1.6b at its full size (24 layers, d 2048, vocab
+    65536), ``paper_mixed`` weights, posit8 state slabs; 8 requests of
+    64-256 prompt tokens and 32 new ones, 128-token chunks."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models import zoo
+    cfg = get_config("rwkv6-1.6b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = zoo.init_model(cfg, torch.Generator("cuda").manual_seed(0),
+                            policy=PrecisionPolicy.paper_mixed())
+    torch.cuda.synchronize()
+    log(f"[rwkv6] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"d_ff={cfg.d_ff}, vocab {cfg.vocab}, paper_mixed; init + pack "
+        f"{time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase_stateful(summary, fails, "rwkv6", cfg, params,
+                   _stateful_traffic(cfg.vocab, 8, 32, 0), n_pages=8)
+
+
+def phase_jamba(summary, fails) -> None:
+    """Phase 3e: jamba-v0.1 at its full width (d 4096, 32/8 heads of 128,
+    16 experts top-2 of d_ff 14336, vocab 65536), depth cut 32 -> 8 (one
+    group: 7 Mamba, 1 attention, 4 MoE, 4 dense SwiGLU layers) and MoE
+    capacity 1.25 -> 8.0 (no pair dropped in any batch layout, so the
+    schedules compare token for token); traffic 6 requests of 64-256
+    prompt tokens and 16 new ones.  Weights drawn and packed block by
+    block on the card; each expert slice through the dequant kernel
+    equals ``to_dense`` of its stack bitwise for every expert format."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.kernels.ops import PackedTensor, dequant, to_dense
+    from repro_torch.models import zoo
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=8,
+                              capacity_factor=8.0)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = zoo.init_model(cfg, torch.Generator("cuda").manual_seed(0),
+                            policy=PrecisionPolicy.paper_mixed())
+    torch.cuda.synchronize()
+    n_par = sum(int(np.prod(t.words.shape[:-2])) * t.shape[0] * t.shape[1]
+                if isinstance(t, PackedTensor) else t.numel()
+                for t in _leaf_paths(params).values())
+    log(f"[jamba8] {cfg.name} cut to n_layers {cfg.n_layers} (from 32) and "
+        f"capacity_factor {cfg.capacity_factor} (from 1.25): "
+        f"{n_par / 1e9:.2f}B parameters, paper_mixed; init + pack block by "
+        f"block {time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, held "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    experts = {}
+    for sub in params["groups"].values():
+        if "moe" in sub:
+            for leaf in sub["moe"]["experts"].values():
+                experts.setdefault(leaf.spec.name, leaf)
+    for name, leaf in experts.items():
+        stack = leaf[0]
+        whole = to_dense(stack, torch.bfloat16)
+        same = all(torch.equal(dequant(stack[e], torch.bfloat16), whole[e])
+                   for e in range(cfg.n_experts))
+        log(f"[jamba8] expert format {name}: {cfg.n_experts} slices through "
+            f"dequant == to_dense bitwise: {same}")
+        if not same:
+            fails.append(f"jamba8: a {name} expert slice through dequant "
+                         f"differs from to_dense")
+        del whole
+    # traffic cut to 6 requests of 16 new tokens (3d serves 8 of 32) to
+    # keep the phase's wall time down; the width stays
+    phase_stateful(summary, fails, "jamba8", cfg, params,
+                   _stateful_traffic(cfg.vocab, 6, 16, 1), n_pages=24,
+                   preempt_pages=8)
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: recurrent, hybrid and MoE families, card vs CPU (float32)
+# ---------------------------------------------------------------------------
+
+STATE_LOGIT_ATOL = 1e-4
+
+
+def phase_stateful_parity(fails) -> None:
+    """Reduced rwkv6, jamba (capacity 8.0) and kimi-k2 in float32, one
+    seeded ``paper_mixed`` tree served on the card and on the CPU:
+    prefill logits within 1e-4, greedy tokens equal, and the posit8
+    state after prefill equal code for code except where the two f32
+    states straddle a rounding boundary (counted)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models import zoo
+    from repro_torch.serve.engine import ServeEngine
+    for name in ("rwkv6-1.6b", "jamba-v0.1-52b", "kimi-k2-1t-a32b"):
+        cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32",
+                                  capacity_factor=8.0)
+        stateful = cfg.family in ("ssm", "hybrid")
+        params = zoo.init_model(cfg, torch.Generator("cpu").manual_seed(5),
+                                policy=PrecisionPolicy.paper_mixed())
+        toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, 24))
+        logits, raw, outs = {}, {}, {}
+        for dev in ("cpu", "cuda"):
+            eng = ServeEngine(cfg, params, max_len=64, quantized_kv=True,
+                              quantized_state=stateful, device=dev)
+            batch = {"tokens": torch.as_tensor(toks, device=dev)}
+            with torch.inference_mode():
+                logits[dev], raw[dev] = zoo.apply_model(eng.params, batch,
+                                                        cfg)
+            outs[dev] = eng.generate(toks, 16)
+        err = (logits["cuda"].cpu() - logits["cpu"]).abs().max().item()
+        same = bool(np.array_equal(outs["cpu"], outs["cuda"]))
+        note = ""
+        if stateful:
+            qs = {dev: _leaf_paths(zoo.quantize_cache(raw[dev], None, True))
+                  for dev in raw}
+            n_codes = n_diff = 0
+            worst = 0
+            for key, want in qs["cpu"].items():
+                if not key.endswith("_codes") or \
+                        key.rsplit("/", 1)[-1].startswith(("k_", "v_")):
+                    continue
+                got = qs["cuda"][key].cpu()
+                diff = got.to(torch.int32) - want.to(torch.int32)
+                n_codes += diff.numel()
+                n_diff += int((diff != 0).sum())
+                worst = max(worst, int(diff.abs().max()))
+                sk = key.replace("_codes", "_scale")
+                if not torch.equal(qs["cuda"][sk].cpu(), qs["cpu"][sk]):
+                    fails.append(f"state parity {name}: {sk} scales differ")
+            note = (f"; state codes differing {n_diff} of {n_codes} (each "
+                    f"one code step: {worst <= 1})")
+            if worst > 1 or n_diff > n_codes // 1000:
+                fails.append(f"state parity {name}: {n_diff} of {n_codes} "
+                             f"state codes differ, by up to {worst}")
+        log(f"[sparity] {cfg.name} (float32): prefill logits max_abs_err "
+            f"{err:.3e} (tol {STATE_LOGIT_ATOL}); greedy tokens equal: "
+            f"{same}{note}")
+        if not err <= STATE_LOGIT_ATOL:
+            fails.append(f"state parity {name}: logits differ by {err}")
+        if not same:
+            fails.append(f"state parity {name}: greedy tokens differ "
+                         f"between cuda and cpu")
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: continuous serving parity, reduced config in float32
 # ---------------------------------------------------------------------------
 
@@ -1612,30 +2068,33 @@ NO_LIBRARY = ("no single PyTorch call computes it (packed low-bit words "
               "decoded and scaled; an exact integer posit8 dot)")
 
 
-def _dequant_case(tag, t, fails) -> float:
+def _dequant_case(tag, t, fails, dtype=torch.float32) -> float:
     from repro_torch.kernels.codec import dequant, dequant_plain
     k, n = t.shape
-    got = dequant(t.words, t.scales, t.spec, k, n)
-    want = dequant_plain(t.words, t.scales, t.spec, k, n)
+    got = dequant(t.words, t.scales, t.spec, k, n, dtype)
+    want = dequant_plain(t.words, t.scales, t.spec, k, n, dtype)
     torch.cuda.synchronize()
-    same = got.shape == (k, n) and torch.equal(got, want)
-    err = (got - want).abs().max().item() if got.shape == want.shape \
-        else float("inf")
-    log(f"[dequant] {tag} words={tuple(t.words.shape)} scales="
-        f"{tuple(t.scales.shape)} bitwise: {'ok' if same else 'MISS'} "
-        f"(max_abs_err {err:.3e})")
+    same = got.shape == (k, n) and got.dtype == dtype \
+        and torch.equal(got, want)
+    err = (got.float() - want.float()).abs().max().item() \
+        if got.shape == want.shape else float("inf")
+    log(f"[dequant] {tag} out={str(dtype).split('.')[-1]} words="
+        f"{tuple(t.words.shape)} scales={tuple(t.scales.shape)} bitwise: "
+        f"{'ok' if same else 'MISS'} (max_abs_err {err:.3e})")
     if not same:
         fails.append(f"dequant {tag}")
     return err
 
 
-def _dequant_times(t):
+def _dequant_times(t, dtype=torch.float32):
     """(kernel ms, plain ms, bound ms, bound_by) of one dequant."""
     from repro_torch.kernels.codec import dequant, dequant_plain
     k, n = t.shape
-    ms = time_ms(lambda: dequant(t.words, t.scales, t.spec, k, n))
-    plain = time_ms(lambda: dequant_plain(t.words, t.scales, t.spec, k, n))
-    nbytes = t.words.numel() * 4 + t.scales.numel() * 4 + k * n * 4
+    ms = time_ms(lambda: dequant(t.words, t.scales, t.spec, k, n, dtype))
+    plain = time_ms(lambda: dequant_plain(t.words, t.scales, t.spec, k, n,
+                                          dtype))
+    nbytes = t.words.numel() * 4 + t.scales.numel() * 4 \
+        + k * n * torch.finfo(dtype).bits // 8
     return (ms, plain, *bound_ms(nbytes, float(k * n), PEAK_FLOPS["f32"]))
 
 
@@ -1678,14 +2137,27 @@ def phase_engine_kernels(summary, fails) -> None:
         for group in (None, 32, 64):
             w = torch.randn((1024, 1024), generator=gen, device="cuda")
             t = pack_tensor(spec, w, group_size=group)
-            max_err = max(max_err, _dequant_case(
-                f"{spec.name:9s} g={str(group):4s} K=N=1024 2-D", t, fails))
+            for dtype in (torch.float32, torch.bfloat16):
+                max_err = max(max_err, _dequant_case(
+                    f"{spec.name:9s} g={str(group):4s} K=N=1024 2-D", t,
+                    fails, dtype))
     # qwen2-0.5b's FFN gate slice under paper_mixed: FP4, per channel,
     # stacked layout (K padded to nothing, N to the word)
     w = torch.randn((2, 896, 4864), generator=gen, device="cuda") * 0.05
     ffn = pack_tensor(fmt.FP4, w, group_size=None)[1]
     max_err = max(max_err, _dequant_case("fp4 FFN slice 896x4864 stacked",
                                          ffn, fails))
+    # jamba-v0.1's expert slices (phase 3e's path): FP4 per channel,
+    # stacked, gate/up 4096 x 14336 and down 14336 x 4096, written in bf16
+    experts = {}
+    for k, n in ((4096, 14336), (14336, 4096)):
+        w = torch.randn((2, k, n), generator=gen, device="cuda") * 0.02
+        experts[k, n] = pack_tensor(fmt.FP4, w, group_size=None)[1]
+        del w
+        for dtype in (torch.bfloat16, torch.float32):
+            max_err = max(max_err, _dequant_case(
+                f"fp4 jamba expert slice {k}x{n} stacked", experts[k, n],
+                fails, dtype))
     p8 = pack_tensor(fmt.POSIT8, torch.randn((1024, 1024), generator=gen,
                                              device="cuda"))
     # two rounds in turns show the spread; the second is the one recorded
@@ -1703,6 +2175,18 @@ def phase_engine_kernels(summary, fails) -> None:
             elif rnd == 2:
                 summary["dequant"].update(ms_ffn=ms, plain_ms_ffn=plain,
                                           bound_ms_ffn=b_ms)
+    # an expert slice as phase 3e decodes it (bf16) beside the f32 write
+    t = experts[4096, 14336]
+    for dtype in (torch.float32, torch.bfloat16):
+        ms, plain, b_ms, b_by = _dequant_times(t, dtype)
+        name = str(dtype).split(".")[-1]
+        log(f"[dequant] time jamba expert slice 4096x14336 out={name}: "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by})")
+        summary["dequant"].update({f"ms_expert_{name}": ms,
+                                   f"plain_ms_expert_{name}": plain,
+                                   f"bound_ms_expert_{name}": b_ms})
+    del experts, t
 
     rng = np.random.default_rng(6)
     a = rng.integers(0, 256, (64, 1024))
@@ -1930,6 +2414,17 @@ def main() -> int:
     phase_continuous_parity(fails)
     log(f"[time] continuous parity {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    phase_rwkv(summary, fails)
+    log(f"[time] rwkv6-1.6b serving (3d) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_jamba(summary, fails)
+    log(f"[time] jamba-v0.1 depth-8 serving (3e) "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_stateful_parity(fails)
+    log(f"[time] recurrent/hybrid/MoE parity (4c) "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_engine_plane(summary, fails)
     log(f"[time] engine plane {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1959,6 +2454,9 @@ def main() -> int:
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"]})
+        # the launches of the recurrent and hybrid paths (phases 3d/3e)
+        kernels[-1].update({key: v for key, v in s.items()
+                            if key.startswith("launches_")})
         if name == "rmmec_matmul":   # the prefill shapes beside decode's
             kernels[-1].update({key: s[key] for key in (
                 "ms_m256", "ms_m1024", "library_ms_m1024", "bound_ms_m1024")})

@@ -1,8 +1,9 @@
 """XR-NPE reproduction in PyTorch for NVIDIA Hopper.
 
 The counterpart of the JAX package ``repro``: the same number formats,
-packed-weight data plane, dense decoder, static and continuous serving
-engines, and the paper's SIMD-MAC engine plane (``core.npe``,
+packed-weight data plane, decoder LMs of the dense, MoE, recurrent
+(rwkv6) and hybrid (jamba) families, static, continuous and
+disaggregated serving engines (posit8 KV pages and state slabs), and the paper's SIMD-MAC engine plane (``core.npe``,
 ``core.quire``, the Table II/III bench twins in ``benchmarks``), with
 the TPU's six Pallas kernels rewritten as CUDA C++ kernels for
 ``sm_90a`` (``csrc/``, built with ``nvcc`` at first use):

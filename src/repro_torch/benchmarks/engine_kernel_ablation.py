@@ -194,7 +194,7 @@ def _dequant_call(lib, t, route=None, bands=None):
     args = (t.words.data_ptr(), t.scales.data_ptr(), out.data_ptr(), k, n,
             np_, kp // g if g > 1 else 0, kcodec.KIND[spec.kind], spec.bits,
             spec.es, spec.ebits, spec.mbits, int(spec.has_nan),
-            spec.frac_bits, kcodec.ROUTES[plan.route], *plan.grid,
+            spec.frac_bits, kcodec.ROUTES[plan.route], *plan.grid, 0,
             torch.cuda.current_stream().cuda_stream)
 
     def call():

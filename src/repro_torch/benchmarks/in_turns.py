@@ -3,6 +3,8 @@
   PYTHONPATH=src python -m repro_torch.benchmarks.in_turns attention \
       TREE_A TREE_B [TREE_B TREE_A ...]
   PYTHONPATH=src python -m repro_torch.benchmarks.in_turns engines
+  PYTHONPATH=src python -m repro_torch.benchmarks.in_turns serve \
+      TREE_A TREE_B [TREE_B TREE_A ...]
 
 ``attention``: the Dh 64 attention kernels' times (``flash_decode`` at
 ``chip_smoke.py`` phase 2's shapes, ``paged_flash_decode`` and
@@ -17,7 +19,13 @@ traffic: wall time and, per decode iteration, the host time of the
 decode loop's dispatch, the decode dispatch and sync spans and the
 prefill spans.
 
-Both print CSV rows ``name,value,derived`` and the card's name and power
+``serve``: qwen2-0.5b served by each checkout in the order given, one
+process each: the static engine at phase 3's shape (B=8, prompt 128, 32
+steps) with ``paper_mixed`` packed weights and with unpacked bf16 ones,
+ms per decode step; then ``ContinuousEngine`` at K=1 and K=4 on phase
+3b's weights, pool and traffic, wall and ms per decode iteration.
+
+All print CSV rows ``name,value,derived`` and the card's name and power
 limit last.
 """
 
@@ -50,6 +58,66 @@ print("RESULT " + json.dumps({"flash_decode": summary["flash_decode"]["ms"],
 """
 
 
+_SERVE = """
+import json, os, sys, time
+tree = os.path.abspath(sys.argv[1])
+sys.path[:0] = [os.path.join(tree, "src"), tree]
+import numpy as np, torch
+import chip_smoke as cs
+from repro_torch.configs import get_config
+from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.models import zoo
+from repro_torch.obs import TraceRecorder
+from repro_torch.serve.engine import ContinuousEngine, ServeEngine
+cs.phase_build()
+cfg = get_config("qwen2-0.5b")
+res = {}
+toks = np.random.default_rng(0).integers(0, cfg.vocab, (8, 128))
+for name, policy in (("static_packed", PrecisionPolicy.paper_mixed()),
+                     ("static_unpacked", None)):
+    params = zoo.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+    eng = ServeEngine(cfg, params, max_len=256, quantized_kv=True,
+                      policy=policy)
+    del params
+    eng.generate(toks, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(toks, 0)
+    torch.cuda.synchronize()
+    prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.generate(toks, 32)
+    torch.cuda.synchronize()
+    res[name + "_ms_per_step"] = (time.perf_counter() - t0 - prefill) / 32 * 1e3
+    del eng
+params = zoo.pack_params(
+    zoo.init_model(cfg, torch.Generator("cuda").manual_seed(0)),
+    PrecisionPolicy.paper_mixed())
+kw = dict(max_len=1024, page_size=128, max_batch=8,
+          prefill_chunk_tokens=256, prefix_cache=True, sync_guard=True)
+warm = ContinuousEngine(cfg, params, n_pages=8, decode_steps=1, **kw)
+rng = np.random.default_rng(1)
+for n in (300, 40):
+    warm.submit(rng.integers(0, cfg.vocab, n), 3)
+warm.run()
+reqs = cs._continuous_traffic(cfg.vocab)
+for k in (1, 4):
+    rec = TraceRecorder()
+    eng = ContinuousEngine(cfg, params, n_pages=20, decode_steps=k,
+                           trace=rec, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs._serve_continuous(eng, reqs)
+    torch.cuda.synchronize()
+    res[f"continuous_k{k}_wall_s"] = time.perf_counter() - t0
+    iters = eng.decode_dispatches * k
+    res[f"continuous_k{k}_ms_per_decode_iteration"] = sum(
+        e["dur"] for n in ("decode_dispatch", "decode_sync")
+        for e in rec.events(n)) * 1e3 / iters
+print("RESULT " + json.dumps(res))
+"""
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -68,6 +136,15 @@ def attention(trees) -> None:
         for name, ms in res.items():
             print(f"attention/{name},{ms:.5f},turn={i};tree={tree}",
                   flush=True)
+
+
+def serve(trees) -> None:
+    for i, tree in enumerate(trees):
+        out = subprocess.run([sys.executable, "-c", _SERVE, tree],
+                             capture_output=True, text=True, check=True,
+                             timeout=900).stdout
+        for name, v in json.loads(out.split("RESULT ", 1)[1]).items():
+            print(f"serve/{name},{v:.4f},turn={i};tree={tree}", flush=True)
 
 
 def engines() -> None:
@@ -139,6 +216,8 @@ def main(argv=None) -> None:
         attention(argv[1:])
     elif argv == ["engines"]:
         engines()
+    elif argv[:1] == ["serve"] and len(argv) > 1:
+        serve(argv[1:])
     else:
         raise SystemExit(__doc__)
     print(_card())

@@ -1,9 +1,12 @@
 """Turn parameters handed over as numpy into the port's tensors.
 
-The JAX package's trees cross as nested dicts of numpy arrays.  A packed
+The JAX package's trees cross as nested dicts of numpy arrays, at any
+depth (dense and MoE ``layers``, rwkv ``layers``, hybrid ``groups`` with
+their ``b0..`` sub-blocks, caches and state trees alike).  A packed
 tensor crosses as a dict with ``words`` (the uint32 words, or their
 int32 view), ``scales``, ``mask``, ``shape``, ``spec`` (a format name)
-and ``group``.  bfloat16 arrays (numpy's ``bfloat16`` extension dtype)
+and ``group``, whatever its leading dims (a stacked layer weight, or a
+``(groups, experts, K, N)`` expert stack).  bfloat16 arrays (numpy's ``bfloat16`` extension dtype)
 cross through a 16-bit integer view, so this module needs neither jax
 nor ml_dtypes.
 """

@@ -3,14 +3,17 @@
 // Replaces: src/repro/kernels/codec.py, dequant_pallas (the TPU kernel
 // that turns packed words and po2 scales into a dense f32 matrix).
 //
-// Computes out (K, N) f32 = decode(code) * scale from int32 words
+// Computes out (K, N) = decode(code) * scale from int32 words
 // (Kp, Np / per) holding per = 32 / bits codes each, little-endian within
 // the word, and scales (G, Np) f32: G == 1 is per-channel, G > 1 gives
 // one scale row per K-group of `group` = Kp / G rows.  K <= Kp and
 // N <= Np are the logical shape; the padding rows and columns are not
 // written.  Each output is one f32 multiply of the exactly decoded code
 // by its scale, so the result equals the plain PyTorch version bit for
-// bit.
+// bit.  The output is f32, or bf16 (`out_bf16`): the f32 product rounded
+// to nearest even as PyTorch's f32 -> bf16 cast rounds it (NaN to
+// 0x7FC0), so a bf16 output equals the f32 one cast to bf16, bit for bit,
+// without the f32 matrix ever being written.
 //
 // What bounds it on this card: bytes.  It reads 0.5, 1 or 2 bytes a
 // weight and writes 4 (writes are 67-89% of the bytes), with one multiply
@@ -49,16 +52,34 @@ namespace {
 
 using namespace xrnpe;
 
+// f32 -> bf16 bits, round to nearest even, NaN to 0x7FC0: PyTorch's cast
+__device__ __forceinline__ uint16_t bf16_bits(float x) {
+  uint32_t u = __float_as_uint(x);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7FC0u;
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return static_cast<uint16_t>(u >> 16);
+}
+
+// an output element: f32 as is, or the bits of its bf16 rounding
+template <class OutT>
+__device__ __forceinline__ OutT out_value(float x) {
+  if constexpr (sizeof(OutT) == 2) {
+    return bf16_bits(x);
+  } else {
+    return x;
+  }
+}
+
 constexpr int WORD_THREADS = 256;
 constexpr int STRIP_WARPS = 8;                      // warps of a strip block
 constexpr int STRIP_THREADS = 32 * STRIP_WARPS;
 constexpr int STRIP_VECS = 32;                      // uint4s of a strip: one a lane
 enum Route { ROUTE_WORD = 0, ROUTE_STRIP = 1 };
 
-template <class F>
+template <class F, class OutT>
 __global__ void __launch_bounds__(WORD_THREADS)
 word_kernel(const uint32_t* __restrict__ w, const float* __restrict__ scales,
-            float* __restrict__ out, int K, int N, int Np, int group,
+            OutT* __restrict__ out, int K, int N, int Np, int group,
             int nw_out, int vec) {
   constexpr int PER = 32 / F::BITS;
   constexpr uint32_t CODE_MASK = (1u << F::BITS) - 1u;
@@ -74,8 +95,13 @@ word_kernel(const uint32_t* __restrict__ w, const float* __restrict__ scales,
 #pragma unroll
   for (int j = 0; j < PER; ++j)
     v[j] = F::decode((word >> (j * F::BITS)) & CODE_MASK) * __ldg(srow + j);
-  float* dst = out + static_cast<size_t>(k) * N + wc * PER;
-  if (vec) {  // N % PER == 0: the word's PER outputs are in bounds and aligned
+  OutT* dst = out + static_cast<size_t>(k) * N + wc * PER;
+  if constexpr (sizeof(OutT) == 2) {  // bf16: one element at a time
+    const int n0 = wc * PER;
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      if (n0 + j < N) dst[j] = out_value<OutT>(v[j]);
+  } else if (vec) {  // N % PER == 0: the word's PER outputs are in bounds and aligned
     if constexpr (PER == 2) {
       *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
     } else {
@@ -111,10 +137,10 @@ __device__ __forceinline__ void load_scales(float4 (&sc)[NCH], const float* __re
 // 4-column chunks l, l + 32, ... of the strip, so each float4 store of the
 // warp writes 512 contiguous bytes.  nv: uint4s of a packed row; nv_out:
 // those holding outputs below N.
-template <class F>
+template <class F, class OutT>
 __global__ void __launch_bounds__(STRIP_THREADS)
 strip_kernel(const uint4* __restrict__ w, const float* __restrict__ scales,
-             float* __restrict__ out, int K, int N, int Np, int group, int nv, int nv_out,
+             OutT* __restrict__ out, int K, int N, int Np, int group, int nv, int nv_out,
              int band) {
   constexpr int PER = 32 / F::BITS, OUT = 4 * PER;  // outputs of a uint4
   constexpr int NCH = OUT / 4;                      // 4-column chunks a lane stores
@@ -152,7 +178,7 @@ strip_kernel(const uint4* __restrict__ w, const float* __restrict__ scales,
     }
     reinterpret_cast<uint4*>(staged)[lane] = cur;
     __syncwarp();
-    float* dst = out + static_cast<size_t>(r) * N;
+    OutT* dst = out + static_cast<size_t>(r) * N;
 #pragma unroll
     for (int j = 0; j < NCH; ++j) {
       const int q = j * 32 + lane, col = n0 + 4 * q;  // chunk q: codes 4q .. 4q+3
@@ -168,11 +194,17 @@ strip_kernel(const uint4* __restrict__ w, const float* __restrict__ scales,
       v[2] *= sc[j].z;
       v[3] *= sc[j].w;
       if (vec_out && col + 4 <= N) {
-        __stcs(reinterpret_cast<float4*>(dst + col), make_float4(v[0], v[1], v[2], v[3]));
+        if constexpr (sizeof(OutT) == 2) {  // four bf16s: one 8-byte store
+          __stcs(reinterpret_cast<uint2*>(dst + col),
+                 make_uint2(bf16_bits(v[0]) | (static_cast<uint32_t>(bf16_bits(v[1])) << 16),
+                            bf16_bits(v[2]) | (static_cast<uint32_t>(bf16_bits(v[3])) << 16)));
+        } else {
+          __stcs(reinterpret_cast<float4*>(dst + col), make_float4(v[0], v[1], v[2], v[3]));
+        }
       } else {  // the ragged edge
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (col + e < N) dst[col + e] = v[e];
+          if (col + e < N) dst[col + e] = out_value<OutT>(v[e]);
       }
     }
     __syncwarp();  // the staged row is read before the next overwrites it
@@ -182,8 +214,8 @@ strip_kernel(const uint4* __restrict__ w, const float* __restrict__ scales,
 
 // `route`, `strips` and `bands` come from the wrapper's plan
 // (kernels/codec.py, dequant_plan); the strip route checks what it needs.
-template <class F>
-cudaError_t launch(const uint32_t* w, const float* scales, float* out, int K, int N, int Np,
+template <class F, class OutT>
+cudaError_t launch(const uint32_t* w, const float* scales, OutT* out, int K, int N, int Np,
                    int group, int route, int strips, int bands, cudaStream_t stream) {
   constexpr int PER = 32 / F::BITS;
   if (K == 0 || N == 0) return cudaSuccess;
@@ -195,14 +227,14 @@ cudaError_t launch(const uint32_t* w, const float* scales, float* out, int K, in
         bands < 1)
       return cudaErrorInvalidValue;
     const int band = (K + bands - 1) / bands;
-    strip_kernel<F><<<dim3(strips, bands), STRIP_THREADS, 0, stream>>>(
+    strip_kernel<F, OutT><<<dim3(strips, bands), STRIP_THREADS, 0, stream>>>(
         reinterpret_cast<const uint4*>(w), scales, out, K, N, Np, group, nw / 4, nv_out, band);
     return cudaGetLastError();
   }
   const int nw_out = (N + PER - 1) / PER;
   const int64_t total = static_cast<int64_t>(K) * nw_out;
   const unsigned blocks = static_cast<unsigned>((total + WORD_THREADS - 1) / WORD_THREADS);
-  word_kernel<F><<<blocks, WORD_THREADS, 0, stream>>>(
+  word_kernel<F, OutT><<<blocks, WORD_THREADS, 0, stream>>>(
       w, scales, out, K, N, Np, group, nw_out, static_cast<int>(N % PER == 0));
   return cudaGetLastError();
 }
@@ -211,17 +243,20 @@ cudaError_t launch(const uint32_t* w, const float* scales, float* out, int K, in
 
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // a format this library has no decoder for, or a strip plan the layout
-// does not fit).  `group` is 0 for per-channel scales.
+// does not fit).  `group` is 0 for per-channel scales; `out_bf16` 1
+// writes bf16 outputs, 0 f32.
 extern "C" int dequant(const void* words, const void* scales, void* out, int K,
                        int N, int Np, int group, int kind, int bits, int es,
                        int ebits, int mbits, int has_nan, int frac_bits, int route,
-                       int strips, int bands, void* stream) {
+                       int strips, int bands, int out_bf16, void* stream) {
   const uint32_t* w = static_cast<const uint32_t*>(words);
   const float* s = static_cast<const float*>(scales);
-  float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define XRNPE_DEQUANT(...) \
-  launch<__VA_ARGS__>(w, s, o, K, N, Np, group, route, strips, bands, st)
+#define XRNPE_DEQUANT(...)                                                              \
+  (out_bf16 ? launch<__VA_ARGS__, uint16_t>(w, s, static_cast<uint16_t*>(out), K, N, Np, \
+                                            group, route, strips, bands, st)             \
+            : launch<__VA_ARGS__, float>(w, s, static_cast<float*>(out), K, N, Np, group, \
+                                         route, strips, bands, st))
   if (kind == KIND_POSIT) {
     if (bits == 4 && es == 1) return XRNPE_DEQUANT(Posit<4, 1>);
     if (bits == 8 && es == 0) return XRNPE_DEQUANT(Posit<8, 0>);

@@ -1,5 +1,5 @@
 """Standalone SIMD decode (dequantization): packed words and po2 scales
-to a dense f32 matrix (the counterpart of ``repro.kernels.codec``).
+to a dense f32 or bf16 matrix (the counterpart of ``repro.kernels.codec``).
 
 ``dequant`` launches the CUDA kernel of ``csrc/dequant.cu`` on a CUDA
 tensor and runs ``dequant_plain`` on a CPU tensor.  It takes one 2-D
@@ -7,7 +7,8 @@ slice of the packed layout exactly as ``ops.pack_tensor`` leaves it:
 words (Kp, Np/per), scales (G, Np) per channel (G = 1) or per K-group
 (G = Kp / group), and writes only the logical (K, N).  Each output is
 ``decode(code) * scale``, one f32 multiply, so kernel and plain version
-agree bit for bit.
+agree bit for bit.  A bf16 output is that product rounded to nearest
+even (PyTorch's cast), written without the f32 matrix.
 
 On the card ``dequant_plan`` picks the launch: the strip route (a block
 of 8 warps per strip of 32 16-byte word vectors and band of rows, a grid
@@ -65,14 +66,17 @@ def dequant_plan(k: int, n: int, np_: int, bits: int, aligned: bool = True,
 
 
 def dequant_plain(words: torch.Tensor, scales: torch.Tensor,
-                  spec: FormatSpec, k: int, n: int) -> torch.Tensor:
+                  spec: FormatSpec, k: int, n: int,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The kernel's plain version: ``to_dense``'s arithmetic (decode to
-    f32, times the expanded scale) cut to the logical (k, n)."""
-    return ref.dequant_ref(words, scales, spec, scales.shape[-1])[:k, :n]
+    f32, times the expanded scale) cut to the logical (k, n), cast to
+    ``dtype``."""
+    return ref.dequant_ref(words, scales, spec,
+                           scales.shape[-1])[:k, :n].to(dtype)
 
 
 _ARGTYPES = {
-    "dequant": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14
+    "dequant": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15
     + [ctypes.c_void_p],
 }
 
@@ -82,9 +86,12 @@ def _lib() -> ctypes.CDLL:
 
 
 def dequant(words: torch.Tensor, scales: torch.Tensor, spec: FormatSpec,
-            k: int, n: int) -> torch.Tensor:
+            k: int, n: int, dtype: torch.dtype = torch.float32
+            ) -> torch.Tensor:
     """Packed words (Kp, Np/per) int32 + scales (G, Np) f32 -> dense
-    (k, n) f32, for k <= Kp and n <= Np."""
+    (k, n) of ``dtype`` (float32 or bfloat16), for k <= Kp and n <= Np."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dequant writes float32 or bfloat16, not {dtype}")
     if spec.kind not in KIND:
         raise ValueError(f"dequant has no decoder for {spec.name}")
     if words.dim() != 2 or scales.dim() != 2:
@@ -100,20 +107,20 @@ def dequant(words: torch.Tensor, scales: torch.Tensor, spec: FormatSpec,
             f"inconsistent packed layout: words {tuple(words.shape)}, "
             f"scales {tuple(scales.shape)}, k={k}, n={n}")
     if words.device.type == "cpu":
-        return dequant_plain(words, scales, spec, k, n)
+        return dequant_plain(words, scales, spec, k, n, dtype)
     if words.device.type != "cuda":
         raise ValueError(f"dequant runs on cuda or cpu, not {words.device}")
     for name, t in (("words", words), ("scales", scales)):
         if t.device != words.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {words.device}")
-    out = torch.empty((k, n), dtype=torch.float32, device=words.device)
+    out = torch.empty((k, n), dtype=dtype, device=words.device)
     aligned = (words.data_ptr() | scales.data_ptr()) % 16 == 0
     plan = dequant_plan(k, n, np_, spec.bits, aligned, _sms(words.device))
     err = _lib().dequant(
         words.data_ptr(), scales.data_ptr(), out.data_ptr(), k, n, np_,
         kp // g if g > 1 else 0, KIND[spec.kind], spec.bits, spec.es,
         spec.ebits, spec.mbits, int(spec.has_nan), spec.frac_bits,
-        ROUTES[plan.route], *plan.grid,
+        ROUTES[plan.route], *plan.grid, int(dtype == torch.bfloat16),
         torch.cuda.current_stream(words.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dequant launch failed: CUDA error {err}")

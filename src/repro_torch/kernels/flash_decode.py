@@ -24,9 +24,11 @@ bitwise when page == blk, and a C = 1 prefill chunk equals paged decode
 bitwise.  The kernels take any Dh in 1..256 (instantiated at widths 32,
 64, 128 and 256; a narrower head runs on the next width with zero
 columns) and pages (KV blocks) of any size: a page walks as ``s``
-sub-pages of ``sub_page(page, dh)`` slots, the largest divisor of the
-page that fits a kernel (128 slots, 64 at widths above 128), so a
-256-slot page gives the bits of two 128-slot pages.  A head of 257 ..
+sub-pages of ``sub_page(page, dh, kh, gs)`` slots, the largest divisor
+of the page that fits a kernel (128 slots, 64 at widths above 128, fewer
+where the page's scales for all Kh heads would overflow a prefill
+block's shared memory), so a 256-slot page gives the bits of two
+128-slot pages.  A head of 257 ..
 ``WIDE_MAX_DH`` columns takes the wide route of the same entry points
 (``wide_route(dh)``): a SIMT kernel, one block per query row, that
 folds the row's slots one by one in position order, so the same two
@@ -192,6 +194,8 @@ KERNEL_WIDTHS = (32, 64, 128, 256)   # the .cu's instantiations (width_of)
 MAX_SUB = 128        # most slots of a sub-page the kernels walk (MAXP)
 MAX_SUB_WIDE = 64    # ... at a width above 128 (MAXP_WIDE)
 MAX_DH = KERNEL_WIDTHS[-1]           # the tensor-core kernels' widest head
+SMEM_LIMIT = 232448  # dynamic shared memory a block may take (H100: 227 KB)
+LUT_BYTES, ROWS, TEAM_WARPS = 512, 16, 4   # the .cu's constants of the same names
 WIDE_MAX_DH = 4096   # the wide route's widest head (WIDE_MAX_DH in the .cu)
 
 
@@ -211,14 +215,40 @@ def kernel_width(dh: int) -> int:
     return next(w for w in KERNEL_WIDTHS if dh <= w)
 
 
-def sub_page(page: int, dh: int) -> int:
+def prefill_smem_bytes(sub: int, kh: int, gs: int, width: int) -> int:
+    """``smem_bytes`` of ``csrc/flash_decode.cu`` for a prefill block at
+    ``width`` walking sub-pages of ``sub`` slots: two stage buffers (K and
+    V codes, and the sub-page's K and V scales for all ``kh`` heads, ``gs``
+    bf16 a slot and head), the dequantized K and V, and its teams.  A
+    decode block stages one buffer, so this is the larger of the two."""
+    def a16(x):
+        return (x + 15) & ~15
+    ldp = (MAX_SUB if width <= 128 else MAX_SUB_WIDE) + 8
+    team = (3 * ROWS * (width + 8) * 2 + 3 * ROWS * ldp * 2
+            + (2 * TEAM_WARPS * ROWS + 16) * 4)
+    stage = 2 * sub * width + 2 * a16(sub * kh * gs * 2)
+    teams = 1 if width >= 128 else 2
+    return LUT_BYTES + 2 * stage + 2 * a16(sub) * (width + 8) * 2 \
+        + teams * team
+
+
+def sub_page(page: int, dh: int, kh: int = 1, gs: int = 1) -> int:
     """Slots of the sub-pages the kernels walk a page of ``page`` slots
-    as: its largest divisor that fits a kernel at ``dh``'s width (the
-    whole page on the wide route, which walks slots)."""
+    as: its largest divisor that fits a kernel at ``dh``'s width, at most
+    ``MAX_SUB`` (``MAX_SUB_WIDE`` above 128 columns) and within
+    ``SMEM_LIMIT`` for a prefill block over ``kh`` heads with ``gs``
+    scales a slot and head (the whole page on the wide route, which walks
+    slots).  Decode and prefill take the same sub-pages, so a C = 1
+    prefill chunk stays decode bit for bit."""
     if wide_route(dh):
         return page
-    cap = MAX_SUB if kernel_width(dh) <= 128 else MAX_SUB_WIDE
-    return next(d for d in range(min(page, cap), 0, -1) if page % d == 0)
+    w = kernel_width(dh)
+    cap = MAX_SUB if w <= 128 else MAX_SUB_WIDE
+    for d in range(min(page, cap), 0, -1):
+        if page % d == 0 and prefill_smem_bytes(d, kh, gs, w) <= SMEM_LIMIT:
+            return d
+    raise ValueError(f"no sub-page of a {page}-slot page fits shared memory "
+                     f"at Dh={dh}, Kh={kh}, {gs} scales a slot")
 
 
 def _lib() -> ctypes.CDLL:
@@ -276,11 +306,12 @@ def _decode_cuda(q, k_codes, k_scale, v_codes, v_scale, page: int,
     (B, n_pages * page, Kh, Dh); a null ``positions`` puts every row at
     ``pos``; a null ``pad`` means no left pad.  Counts nothing: the
     wrappers count their own launches.  The kernels walk each page as
-    ``page // sub`` sub-pages of ``sub_page(page, dh)`` slots, and keep a
-    partial of the kernel's width for each (the wide route keeps none)."""
+    ``page // sub`` sub-pages of ``sub_page(page, dh, kh, gs)`` slots, and
+    keep a partial of the kernel's width for each (the wide route keeps
+    none)."""
     b, kh, g, dh = q.shape
     _check_kernel_shape("decode", dh, page)
-    sub = sub_page(page, dh)
+    sub = sub_page(page, dh, kh, k_scale.shape[-1])
     nsub = page // sub
     wide = wide_route(dh)
     scratch = torch.empty(
@@ -415,7 +446,7 @@ def paged_flash_prefill(q: torch.Tensor, k_codes: torch.Tensor,
                        ("page_table", "start"))
     page, gs = k_codes.shape[1], k_scale.shape[-1]
     _check_kernel_shape("paged_flash_prefill", dh, page)
-    sub = sub_page(page, dh)
+    sub = sub_page(page, dh, kh, gs)
     nsub = page // sub
     out = torch.empty((b, c, kh, g, dh), dtype=torch.float32, device=q.device)
     err = _lib().paged_flash_prefill(

@@ -146,13 +146,16 @@ def packed_matmul(x: torch.Tensor, t: PackedTensor) -> torch.Tensor:
     return out.reshape(*lead, n)
 
 
-def dequant(t: PackedTensor) -> torch.Tensor:
-    """Materialize one 2-D PackedTensor to dense (K, N) f32 through the
-    decode kernel (a stacked tensor is indexed by layer first)."""
+def dequant(t: PackedTensor, dtype: torch.dtype = torch.float32
+            ) -> torch.Tensor:
+    """Materialize one 2-D PackedTensor to dense (K, N) through the
+    decode kernel, in float32 or bfloat16 (a stacked tensor is indexed by
+    layer first)."""
     if t.words.dim() != 2:
         raise ValueError("dequant takes one 2-D slice; index a stacked "
                          "PackedTensor by layer first")
-    return dequant_kernel.dequant(t.words, t.scales, t.spec, *t.shape)
+    return dequant_kernel.dequant(t.words, t.scales, t.spec, *t.shape,
+                                  dtype)
 
 
 def quire_dot(a_codes: torch.Tensor, b_codes: torch.Tensor) -> torch.Tensor:

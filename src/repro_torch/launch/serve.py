@@ -24,6 +24,15 @@ runs the decode dispatch before it.
 
   ... --disagg --batch 8 --n-pages 48 --prefill-chunk 16 --decode-steps 4
 
+``--arch`` takes every registered config: the dense qwen2-0.5b, the MoE
+arctic-480b and kimi-k2-1t-a32b, the recurrent rwkv6-1.6b and the hybrid
+jamba-v0.1-52b.  The recurrent and hybrid families keep posit8 state
+slabs in the paged engines and prefill on the carry context, so
+``--prefix-cache`` is refused for them.
+
+  ... --arch rwkv6-1.6b --continuous --batch 4 --prefill-chunk 16
+  ... --arch jamba-v0.1-52b --disagg --batch 4 --prefill-chunk 16
+
 It runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path
 (use ``--reduced`` there).  Weights are random, drawn from ``--seed``.
 """

@@ -32,7 +32,8 @@ from ..kernels.ref import dequant_kv_ref, scale_cols
 from . import layers as L
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "attn_prefill_chunk",
-           "quantize_kv", "dequantize_kv", "kv_scale_cols",
+           "quantize_kv", "quantize_kv_many", "dequantize_kv",
+           "kv_scale_cols",
            "decode_quantized_blocks"]
 
 _NEG = -1e30
@@ -148,13 +149,30 @@ def kv_scale_cols(head_dim: int, group_size: Optional[int]) -> int:
 def quantize_kv(k: torch.Tensor, group_size: Optional[int] = None):
     """Posit8 codes (..., Dh) uint8 and po2 scales (..., Gs) bf16 of a KV
     tensor, through the weight plane's ``group_scales`` grid."""
-    dh = k.shape[-1]
-    gs = kv_scale_cols(dh, group_size)
-    g = None if gs == 1 else group_size
-    s = quant.group_scales(fmt.POSIT8, k[..., None].float(), g,
-                           method="absmax_po2")[..., 0]
-    codes = codec_mod.encode(fmt.POSIT8, k.float() / scale_cols(s, dh))
-    return codes.to(torch.uint8), s.to(torch.bfloat16)
+    return quantize_kv_many([k], [group_size])[0]
+
+
+def quantize_kv_many(tensors, groups):
+    """``quantize_kv`` of several tensors (each with its own group), the
+    elementwise encode run once over all of them: the same bytes as one
+    call per tensor, in a third of the launches for a three-leaf state."""
+    scales, scaled = [], []
+    for k, group_size in zip(tensors, groups):
+        dh = k.shape[-1]
+        gs = kv_scale_cols(dh, group_size)
+        g = None if gs == 1 else group_size
+        s = quant.group_scales(fmt.POSIT8, k[..., None].float(), g,
+                               method="absmax_po2")[..., 0]
+        scales.append(s)
+        scaled.append((k.float() / scale_cols(s, dh)).reshape(-1))
+    flat = scaled[0] if len(scaled) == 1 else torch.cat(scaled)
+    codes = codec_mod.encode(fmt.POSIT8, flat).to(torch.uint8)
+    out, at = [], 0
+    for k, s in zip(tensors, scales):
+        n = k.numel()
+        out.append((codes[at:at + n].reshape(k.shape), s.to(torch.bfloat16)))
+        at += n
+    return out
 
 
 def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor,

@@ -5,6 +5,14 @@ the RMMEC kernel (``kernels.ops.packed_matmul``), which launches on a
 CUDA tensor and takes its plain version on a CPU tensor.  Parameters are
 nested dicts with the reference's keys; initialisers draw from a
 ``torch.Generator`` on its device.
+
+``rowstable_matmul`` multiplies through GEMMs of one fixed shape on the
+card, so that a row's result does not depend on how many rows share the
+call.  The recurrent and MoE blocks use it for the weights the serving
+policy leaves unpacked (``dt_proj``, the decay LoRA, the router, the
+decoded expert slices): a request decoded alone and the same request
+decoded in a batch of eight, or prefilled whole and in chunks, then see
+the same bits.  Every other unpacked product is one matmul.
 """
 
 from __future__ import annotations
@@ -16,13 +24,41 @@ import torch
 from ..kernels.ops import PackedTensor, packed_matmul
 
 __all__ = ["dense_init", "dense", "rmsnorm_init", "rmsnorm", "embed_init",
-           "embed", "embed_logits", "ffn_init", "ffn", "rope", "rope_freqs"]
+           "embed", "embed_logits", "ffn_init", "ffn", "rope", "rope_freqs",
+           "normal", "rowstable_matmul"]
+
+# rows of one GEMM of ``rowstable_matmul`` on the card
+ROW_TILE = 64
 
 
 def _uniform(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
     u = torch.rand(shape, generator=gen, device=gen.device,
                    dtype=torch.float32)
     return u * (2.0 * scale) - scale
+
+
+def normal(gen: torch.Generator, shape, std: float) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device) * std
+
+
+def rowstable_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) in the dtype of ``x``.  On a CUDA tensor the
+    rows go through GEMMs of exactly ``ROW_TILE`` rows (the last tile
+    zero-padded): the library picks its kernel, and with it the order of
+    the K sums, from the shape, so one shape for every call keeps each
+    row's bits independent of M.  On the CPU it is one matmul."""
+    w = w.to(x.dtype)
+    if not x.is_cuda:
+        return x @ w
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k)
+    m = x2.shape[0]
+    mp = -(-m // ROW_TILE) * ROW_TILE
+    if mp != m:
+        x2 = torch.cat([x2, x2.new_zeros((mp - m, k))])
+    tiles = [x2[r:r + ROW_TILE] @ w for r in range(0, mp, ROW_TILE)]
+    out = tiles[0] if len(tiles) == 1 else torch.cat(tiles)
+    return out[:m].reshape(*lead, w.shape[-1])
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -34,11 +70,15 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
     return p
 
 
-def dense(p, x: torch.Tensor) -> torch.Tensor:
-    """x @ w (+ bias), in the dtype of ``x``."""
+def dense(p, x: torch.Tensor, rowstable: bool = False) -> torch.Tensor:
+    """x @ w (+ bias), in the dtype of ``x``.  ``rowstable``: an unpacked
+    weight multiplies through ``rowstable_matmul`` (a packed one is
+    row-stable in its kernel already)."""
     w = p["w"]
     if isinstance(w, PackedTensor):
         y = packed_matmul(x, w).to(x.dtype)
+    elif rowstable:
+        y = rowstable_matmul(x, w)
     else:
         y = x @ w.to(x.dtype)
     if "bias" in p:

@@ -1,12 +1,22 @@
-"""Dense decoder LM (the counterpart of ``repro.models.transformer``, dense
-family).
+"""Decoder blocks and the LM for all four families (the counterpart of
+``repro.models.transformer``).
 
-Layer parameters are stacked ``(L, ...)`` leaves under ``params["layers"]``
-like the reference's scan layout, so ``PrecisionPolicy`` globs and the
-packed plane see the same tree; the forward walks the layers with a
-Python loop over slices in place of ``lax.scan``, and a paged cache's
-page table and positions go to every layer as they are.  Other
-families raise.
+  dense / moe : ``params["layers"]``, every leaf stacked (L, ...);
+                attention blocks with an FFN or an MoE.
+  ssm (rwkv6) : ``params["layers"]`` stacked (L, ...); RWKV blocks
+                (time mix + channel mix).
+  hybrid      : ``params["groups"]`` stacked (n_layers / attn_every, ...);
+  (jamba)       a group holds ``attn_every`` sub-blocks ``b0..``: attention
+                at ``attn_every // 2``, Mamba elsewhere, MoE where
+                ``i % moe_every == 1``.
+
+The layout is the reference's scan layout, so ``PrecisionPolicy`` globs
+and the packed plane see the same tree; the forward walks layers (or
+groups) with a Python loop over slices in place of ``lax.scan``.  A paged
+cache's page table and positions go to every attention layer as they
+are.  Decode updates the cache in place: attention writes its token's
+KV, and recurrent layers copy their new (possibly posit8) state into the
+stacked leaves.  Frontends and M-RoPE raise.
 """
 
 from __future__ import annotations
@@ -20,40 +30,176 @@ from ..core.formats import torch_dtype
 from ..kernels.ops import PackedTensor
 from . import attention as A
 from . import layers as L
+from . import moe as M
+from . import ssm as S
 
-__all__ = ["lm_init", "lm_apply", "lm_decode", "init_cache"]
+__all__ = ["lm_init", "lm_apply", "lm_decode", "init_cache",
+           "init_state_cache"]
+
+_FAMILY_MIXER = {"dense": "attn", "moe": "attn", "ssm": "rwkv",
+                 "hybrid": "group"}
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense" or cfg.frontend != "none" \
+    if cfg.family not in _FAMILY_MIXER or cfg.frontend != "none" \
             or cfg.rope_kind != "default":
         raise NotImplementedError(
-            f"the port serves dense text decoders with default RoPE so far; "
-            f"{cfg.name} is family={cfg.family!r}, frontend={cfg.frontend!r},"
-            f" rope_kind={cfg.rope_kind!r}")
+            f"the port serves text decoders of the families "
+            f"{sorted(_FAMILY_MIXER)} with default RoPE so far; "
+            f"{cfg.name} is family={cfg.family!r}, frontend="
+            f"{cfg.frontend!r}, rope_kind={cfg.rope_kind!r}")
 
 
-def lm_init(cfg, generator: Optional[torch.Generator] = None, device=None):
+def _family_mixer(cfg) -> str:
+    return _FAMILY_MIXER[cfg.family]
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _block_init(gen, cfg, mixer: str, use_moe: bool, lead):
+    d = cfg.d_model
+    p: Dict[str, Any] = {"ln1": L.rmsnorm_init(d, lead, gen.device)}
+    if mixer == "attn":
+        p["attn"] = A.attn_init(gen, cfg, lead)
+    elif mixer == "mamba":
+        p["mamba"] = S.mamba_init(gen, cfg, lead)
+    else:
+        p["rwkv"] = S.rwkv_init(gen, cfg, lead)
+    p["ln2"] = L.rmsnorm_init(d, lead, gen.device)
+    if mixer != "rwkv":  # rwkv carries its own channel mix
+        if use_moe:
+            p["moe"] = M.moe_init(gen, cfg, lead)
+        else:
+            p["ffn"] = L.ffn_init(gen, d, cfg.d_ff, cfg.ffn_kind,
+                                  cfg.out_bias, lead)
+    return p
+
+
+def _block_apply(p, x, cfg, mixer: str, use_moe: bool, positions,
+                 cache=None, pos: int = 0, mode: str = "prefill",
+                 pad=None, kv_mask=None):
+    """One block.  Returns (x, cache, aux), aux the MoE load-balance loss
+    (0.0 without an MoE).  The attention mixer returns
+    its prefill kv / chunk kv (None where it wrote in place: decode and
+    paged chunk prefill); a recurrent mixer its new state, posit8 again
+    when it came in posit8 (re-quantized in the layout it came in)."""
+    aux = 0.0
+    h = L.rmsnorm(p["ln1"], x)
+    state_q = None
+    if mixer == "attn":
+        if mode == "decode":
+            h = A.attn_decode(p["attn"], h, cfg, cache, pos, pad)
+            cache = None
+        elif mode == "prefill_chunk":
+            h, cache = A.attn_prefill_chunk(p["attn"], h, cfg, positions,
+                                            cache)
+        else:
+            h, (k, v) = A.attn_apply(p["attn"], h, cfg, positions, kv_mask)
+            cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    elif mixer == "mamba":
+        if cache is not None and "h_codes" in cache:
+            state_q, cache = cache, S.dequantize_state(cache)
+        if mode == "decode":
+            h, cache = S.mamba_decode(p["mamba"], h, cfg, cache)
+        else:
+            h, cache = S.mamba_apply(p["mamba"], h, cfg, cache)
+        if state_q is not None:
+            cache = S.requantize_state(cache, state_q)
+    else:
+        if cache is not None and "tm_state_codes" in cache:
+            state_q, cache = cache, S.dequantize_state(cache)
+        if cache is None:
+            cache = S.rwkv_state_init(cfg, x.shape[0], x.device)
+        h, cache = S.rwkv_time_mix(p["rwkv"], h, cfg, cache)
+    x = x + h
+    h2 = L.rmsnorm(p["ln2"], x)
+    if mixer == "rwkv":
+        h2, cache = S.rwkv_channel_mix(p["rwkv"], h2, cfg, cache)
+        if state_q is not None:
+            cache = S.requantize_state(cache, state_q)
+    elif use_moe:
+        h2, aux = M.moe_apply(p["moe"], h2, cfg)
+    else:
+        h2 = L.ffn(p["ffn"], h2, cfg.ffn_kind)
+    return x + h2, cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Hybrid (jamba) group
+# ---------------------------------------------------------------------------
+
+def _group_layout(cfg):
+    """Sub-layer layout inside one jamba group: (mixer, use_moe) each."""
+    k = cfg.attn_every
+    return [("attn" if i == k // 2 else "mamba",
+             cfg.n_experts > 0 and i % cfg.moe_every == 1)
+            for i in range(k)]
+
+
+def attn_key(cfg) -> str:
+    """Sub-block key of the attention layer inside a hybrid group."""
+    return f"b{cfg.attn_every // 2}"
+
+
+def _group_apply(p, x, cfg, positions, cache=None, pos: int = 0,
+                 mode: str = "prefill", pad=None, kv_mask=None, meta=None):
+    """One group.  A paged cache's ``meta`` (page table, positions)
+    addresses only the attention sub-block's pool leaves; the Mamba
+    sub-blocks carry fixed-size state instead."""
+    aux = 0.0
+    new_cache = {}
+    for i, (mixer, use_moe) in enumerate(_group_layout(cfg)):
+        sub = cache.get(f"b{i}") if cache is not None else None
+        if meta is not None and mixer == "attn" and sub is not None:
+            sub = dict(sub, **meta)
+        x, c, a = _block_apply(p[f"b{i}"], x, cfg, mixer, use_moe,
+                               positions, sub, pos, mode, pad, kv_mask)
+        new_cache[f"b{i}"] = c
+        aux = aux + a
+    return x, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Full LM
+# ---------------------------------------------------------------------------
+
+def lm_init(cfg, generator: Optional[torch.Generator] = None, device=None,
+            policy=None):
     """Random parameters; ``generator`` (seeded, on the target device)
-    decides the device, else a generator seeded 0 on ``device``."""
+    decides the device, else a generator seeded 0 on ``device``.  With a
+    ``policy`` every block's weights are packed as soon as the block is
+    drawn, so the f32 tree of a model too big for the card never exists
+    whole (the result equals ``zoo.pack_params`` of the f32 tree)."""
     _check_family(cfg)
     if generator is None:
         generator = torch.Generator(resolve_device(device)).manual_seed(0)
     dev = generator.device
-    d, n = cfg.d_model, cfg.n_layers
-    p: Dict[str, Any] = {
-        "embed": L.embed_init(generator, cfg.vocab, d),
-        "layers": {
-            "ln1": L.rmsnorm_init(d, (n,), dev),
-            "attn": A.attn_init(generator, cfg, (n,)),
-            "ln2": L.rmsnorm_init(d, (n,), dev),
-            "ffn": L.ffn_init(generator, d, cfg.d_ff, cfg.ffn_kind,
-                              cfg.out_bias, (n,)),
-        },
-        "final_norm": L.rmsnorm_init(d, device=dev),
-    }
+    d = cfg.d_model
+
+    def packed(node, path):
+        if policy is None:
+            return node
+        from .zoo import pack_params
+        return pack_params(node, policy, prefix=path)
+
+    p: Dict[str, Any] = {"embed": L.embed_init(generator, cfg.vocab, d)}
+    mixer = _family_mixer(cfg)
+    if mixer == "group":
+        n = cfg.n_layers // cfg.attn_every
+        p["groups"] = {
+            f"b{i}": packed(_block_init(generator, cfg, m, use_moe, (n,)),
+                            f"groups/b{i}")
+            for i, (m, use_moe) in enumerate(_group_layout(cfg))}
+    else:
+        p["layers"] = packed(_block_init(generator, cfg, mixer,
+                                         cfg.family == "moe",
+                                         (cfg.n_layers,)), "layers")
+    p["final_norm"] = L.rmsnorm_init(d, device=dev)
     if not cfg.tie_embeddings:
-        p["lm_head"] = L.dense_init(generator, d, cfg.vocab)
+        p["lm_head"] = packed(L.dense_init(generator, d, cfg.vocab),
+                              "lm_head")
     return p
 
 
@@ -71,6 +217,24 @@ def _n_layers(tree) -> int:
         else tree.words.shape[0]
 
 
+def _stack(trees):
+    """A list of per-layer trees -> one tree of stacked leaves."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _write_layer(dst, i: int, src) -> None:
+    """Copy a layer's new state ``src`` into slice ``i`` of the stacked
+    leaves of ``dst``, in place (``src`` leaves missing from ``dst`` --
+    the attention sub-block's None -- are skipped)."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _write_layer(dst[k], i, v)
+        elif v is not None:
+            dst[k][i].copy_(v)
+
+
 def _readout(p, x):
     x = L.rmsnorm(p["final_norm"], x)
     if "lm_head" in p:
@@ -83,83 +247,100 @@ def _pop_paged_meta(cache):
     cache carries ONE ``page_table`` (B, NP) (and, for decode,
     ``positions`` (B,)) at the top level, beside the L-stacked pool
     leaves; it has no layer axis, so the layer loop hands the same
-    tensors to every layer instead of slicing them."""
+    tensors to every attention layer instead of slicing them."""
     if not (isinstance(cache, dict) and "page_table" in cache):
         return cache, None
     meta = {k: cache[k] for k in ("page_table", "positions") if k in cache}
     return {k: v for k, v in cache.items() if k not in meta}, meta
 
 
-def _layer_cache(cache, i: int, meta):
-    lc = _layer(cache, i)
-    return lc if meta is None else dict(lc, **meta)
+def _layers_of(p, cfg):
+    """(stacked parameter tree, per-slice apply) for the family."""
+    mixer = _family_mixer(cfg)
+    if mixer == "group":
+        return p["groups"], _group_apply
+
+    def block(lp, x, cfg, positions, cache=None, pos=0, mode="prefill",
+              pad=None, kv_mask=None, meta=None):
+        if meta is not None:
+            cache = dict(cache, **meta)
+        return _block_apply(lp, x, cfg, mixer, cfg.family == "moe",
+                            positions, cache, pos, mode, pad, kv_mask)
+    return p["layers"], block
 
 
 def lm_apply(p, batch, cfg, last_only: bool = False, mode: str = "prefill",
-             cache=None):
-    """Full-sequence forward.  Returns (logits, cache).
+             cache=None, with_aux: bool = False):
+    """Full-sequence forward.  Returns (logits, cache), or (logits, cache,
+    aux) with ``with_aux`` (the MoE load-balance loss summed over layers).
 
-    ``mode="prefill"``: the cache is ``{"k", "v"}`` stacked
-    (L, B, S, Kh, Dh) bf16.  ``mode="prefill_chunk"``: one chunk at
-    ``batch["positions"]`` attends to ``cache`` -- a bf16 carry
-    ``{"k", "v"}`` (L, B, T, Kh, Dh), returning the chunk's own stacked
-    kv, or a paged pool with its ``page_table``, written in place and
-    returned.  ``last_only`` reads out the final position only (the one
-    generation needs).  ``batch``: ``tokens`` (B, S), optional
-    ``positions`` (B, S) and ``kv_mask`` (B, S) bool for left-padded
-    ragged batches."""
+    ``mode="prefill"``: from an empty cache; attention layers return their
+    kv ``{"k", "v"}`` (bf16, stacked (L, B, S, Kh, Dh)) and recurrent
+    layers their final f32 state.  ``mode="prefill_chunk"``: one chunk at
+    ``batch["positions"]`` continues from ``cache`` -- the family's
+    ``init_cache`` tree, whose attention leaves are a bf16 carry (the
+    chunk's own kv is returned) or a paged pool with its ``page_table``
+    (written in place and returned), and whose recurrent leaves are the
+    f32 state carried from the previous chunk (the new state is
+    returned).  ``last_only`` reads out the final position only.
+    ``batch``: ``tokens`` (B, S), optional ``positions`` (B, S) and
+    ``kv_mask`` (B, S) bool for left-padded ragged batches."""
     _check_family(cfg)
     if mode not in ("prefill", "prefill_chunk"):
         raise ValueError(f"lm_apply mode {mode!r}: prefill or prefill_chunk")
-    dtype = torch_dtype(cfg.dtype)
-    tokens = batch["tokens"]
-    x = L.embed(p["embed"], tokens, dtype)
+    x = L.embed(p["embed"], batch["tokens"], torch_dtype(cfg.dtype))
     positions = batch.get("positions")
     kv_mask = batch.get("kv_mask")
     cache, meta = _pop_paged_meta(cache)
-    ks, vs = [], []
-    for i in range(_n_layers(p["layers"])):
-        lp = _layer(p["layers"], i)
-        h = L.rmsnorm(lp["ln1"], x)
-        if mode == "prefill_chunk":
-            h, kv = A.attn_prefill_chunk(lp["attn"], h, cfg, positions,
-                                         _layer_cache(cache, i, meta))
-        else:
-            h, (k, v) = A.attn_apply(lp["attn"], h, cfg, positions, kv_mask)
-            kv = {"k": k, "v": v}
-        x = x + h
-        x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["ln2"], x), cfg.ffn_kind)
-        if kv is not None:
-            ks.append(kv["k"].to(torch.bfloat16))
-            vs.append(kv["v"].to(torch.bfloat16))
+    layers, apply = _layers_of(p, cfg)
+    aux = 0.0
+    new = []
+    for i in range(_n_layers(layers)):
+        lc = _layer(cache, i) if cache is not None else None
+        x, c, a = apply(_layer(layers, i), x, cfg, positions, lc, mode=mode,
+                        kv_mask=kv_mask, meta=meta)
+        new.append(c)
+        aux = aux + a
     if last_only:
         x = x[:, -1:]
     if meta is not None:
-        return _readout(p, x), dict(cache, **meta)
-    return _readout(p, x), {"k": torch.stack(ks), "v": torch.stack(vs)}
+        out_cache = dict(cache, **meta)       # the pool, written in place
+    else:
+        out_cache = _stack(new)
+    logits = _readout(p, x)
+    if not with_aux:
+        return logits, out_cache
+    return logits, out_cache, torch.as_tensor(aux, dtype=torch.float32,
+                                              device=x.device)
 
 
 def lm_decode(p, tokens, cfg, cache, pos: int, pad=None):
     """One decode step: tokens (B, 1) -> logits (B, 1, V).  ``cache`` is
-    updated in place (slot ``pos`` of every layer) and returned.  A
-    PAGED cache (pool leaves plus a top-level ``page_table`` and
-    ``positions``) decodes each request at its own position; ``pos`` is
-    then ignored."""
+    updated in place (slot ``pos`` of every attention layer, the whole
+    state of every recurrent one) and returned.  A PAGED cache (pool
+    leaves plus a top-level ``page_table`` and ``positions``) decodes
+    each request at its own position; ``pos`` is then ignored."""
     _check_family(cfg)
     x = L.embed(p["embed"], tokens, torch_dtype(cfg.dtype))
-    layers, meta = _pop_paged_meta(cache)
-    for i in range(_n_layers(p["layers"])):
-        lp = _layer(p["layers"], i)
-        x = x + A.attn_decode(lp["attn"], L.rmsnorm(lp["ln1"], x), cfg,
-                              _layer_cache(layers, i, meta), pos, pad)
-        x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["ln2"], x), cfg.ffn_kind)
+    layers_cache, meta = _pop_paged_meta(cache)
+    layers, apply = _layers_of(p, cfg)
+    for i in range(_n_layers(layers)):
+        lc = _layer(layers_cache, i)
+        x, c, _ = apply(_layer(layers, i), x, cfg, None, lc, pos,
+                        mode="decode", pad=pad, meta=meta)
+        if c is not None:
+            _write_layer(layers_cache, i, c)
     return _readout(p, x), cache
 
 
-def _one_kv(cfg, batch: int, max_len: int, quantized: bool,
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def _one_kv(cfg, n: int, batch: int, max_len: int, quantized: bool,
             kv_group: Optional[int], device):
     hd = cfg.resolved_head_dim
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, hd)
+    shape = (n, batch, max_len, cfg.n_kv_heads, hd)
     if quantized:
         gs = A.kv_scale_cols(hd, kv_group)
         sshape = shape[:-1] + (gs,)
@@ -173,10 +354,45 @@ def _one_kv(cfg, batch: int, max_len: int, quantized: bool,
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
 
+def _stacked(tree, n: int):
+    """A per-request state tree with a leading axis of ``n`` layers."""
+    if isinstance(tree, dict):
+        return {k: _stacked(v, n) for k, v in tree.items()}
+    return tree.expand(n, *tree.shape).contiguous()
+
+
 def init_cache(cfg, batch: int, max_len: int, quantized_kv: bool = False,
                kv_group: Optional[int] = None, device=None):
-    """Empty stacked (L, B, T, Kh, ...) cache: bf16 k/v, or posit8 codes
-    with bf16 scales initialised to 1.0."""
+    """Empty stacked cache of the family's layout: attention layers get
+    bf16 k/v (L, B, T, Kh, Dh), or posit8 codes with bf16 scales
+    initialised to 1.0; recurrent layers get their zero f32 state."""
     _check_family(cfg)
-    return _one_kv(cfg, batch, max_len, quantized_kv, kv_group,
-                   resolve_device(device))
+    device = resolve_device(device)
+    mixer = _family_mixer(cfg)
+    if mixer == "rwkv":
+        return init_state_cache(cfg, batch, device)
+    if mixer == "group":
+        n = cfg.n_layers // cfg.attn_every
+        out = init_state_cache(cfg, batch, device)
+        out[attn_key(cfg)] = _one_kv(cfg, n, batch, max_len, quantized_kv,
+                                     kv_group, device)
+        return dict(sorted(out.items()))
+    return _one_kv(cfg, cfg.n_layers, batch, max_len, quantized_kv, kv_group,
+                   device)
+
+
+def init_state_cache(cfg, batch: int, device=None):
+    """The recurrent-state-only part of :func:`init_cache`: the rwkv
+    per-layer state stack, or the Mamba sub-block states of a hybrid
+    group (the attention sub-block pages through the KV pool instead).
+    None for pure-attention families."""
+    device = resolve_device(device)
+    mixer = _family_mixer(cfg)
+    if mixer == "rwkv":
+        return _stacked(S.rwkv_state_init(cfg, batch, device), cfg.n_layers)
+    if mixer == "group":
+        n = cfg.n_layers // cfg.attn_every
+        return {f"b{i}": _stacked(S.mamba_state_init(cfg, batch, device), n)
+                for i, (m, _) in enumerate(_group_layout(cfg))
+                if m != "attn"}
+    return None

@@ -50,7 +50,10 @@ interleaved ``ContinuousEngine`` (the same chunk code through
 ``_ChunkPrefillMixin``, the same dispatch/replay code through
 ``_dispatch_decode_loop``/``_apply_decode_tokens``, bitwise page
 export/import, and a sampler keyed on (seed, rid, token index)).
-Only the dense family (the KV page kind) serves here so far.
+Recurrent and hybrid families hand off their state slab with their
+pages: the payload is then ``{"state": export_state(slab)[, "kv":
+export_pages(pages)]}``, and the decode side allocates a slab (rolling
+back its pages if none is free) before importing it.
 """
 
 from __future__ import annotations
@@ -68,10 +71,11 @@ from ..configs.base import ModelConfig
 from ..core.policy import PrecisionPolicy
 from ..obs import NULL_RECORDER, MetricRegistry, bind_counters
 from .engine import (_apply_decode_tokens, _build_decode_loop,
-                     _ChunkPrefillMixin, _decode_horizon,
-                     _dispatch_decode_loop, _PageTableCache,
-                     _serving_params, build_prefill_chunk_step)
-from .paged_kv import PagedKVPool
+                     _check_stateful_context, _ChunkPrefillMixin,
+                     _decode_horizon, _dispatch_decode_loop,
+                     _PageTableCache, _serving_params,
+                     build_prefill_chunk_step)
+from .paged_kv import PagedKVPool, _leaves, _tree_map
 from .scheduler import RUNNING, DecodeRunner, Request, Scheduler
 
 __all__ = ["PageHandoffChannel", "PrefillWorker", "DecodeWorker",
@@ -84,7 +88,9 @@ class PageHandoffChannel:
 
     Each entry is ``(request, payload)``, the payload the request's
     gathered pool leaves (``PagedKVPool.export_pages``): the handoff
-    moves the compressed cache, never a bf16 one.  ``depth`` bounds the
+    moves the compressed cache, never a bf16 one.  A stateful family's
+    payload is the nested ``{"state": ..., "kv": ...}`` (``"kv"`` only
+    for a hybrid), so a request's slab crosses in the same entry.  ``depth`` bounds the
     prefills in flight; a full channel parks further completions on the
     prefill side, holding their pages and batch slots.  ``push`` copies
     the payload to ``device`` (the decode worker's) without blocking."""
@@ -121,10 +127,12 @@ class PageHandoffChannel:
         assert not self.full, "push on a full channel (check .full first)"
         with self._trace.span("channel_push", rid=req.rid):
             if self.device is not None:
-                payload = {k: v.to(self.device, non_blocking=True)
-                           for k, v in payload.items()}
-        pages = int(payload["k_codes"].shape[1])
-        nbytes = sum(v.numel() * v.element_size() for v in payload.values())
+                payload = _tree_map(
+                    lambda v: v.to(self.device, non_blocking=True), payload)
+        kv = payload.get("kv") if "state" in payload else payload
+        pages = int(kv["k_codes"].shape[1]) if kv is not None else 0
+        nbytes = sum(v.numel() * v.element_size()
+                     for v in _leaves(payload))
         self.handoffs += 1
         self.handoff_pages += pages
         self.handoff_bytes += nbytes
@@ -169,7 +177,10 @@ class PrefillWorker(_ChunkPrefillMixin):
         self.prefill_context = prefill_context
         self.metrics = registry if registry is not None else MetricRegistry()
         self._trace = trace if trace is not None else NULL_RECORDER
-        pool = PagedKVPool(cfg, n_pages, page_size, kv_group, device=device)
+        n_slabs = max_batch \
+            if "state" in PagedKVPool.page_kinds(cfg) else 0
+        pool = PagedKVPool(cfg, n_pages, page_size, kv_group,
+                           n_slabs=n_slabs, device=device)
         pool.register_gauges(self.metrics, "prefill/pool")
         self.scheduler = Scheduler(pool, max_batch,
                                    max_pages_per_req=max_pages_per_req,
@@ -177,8 +188,10 @@ class PrefillWorker(_ChunkPrefillMixin):
                                    registry=self.metrics, trace=self._trace,
                                    namespace="prefill/scheduler")
         self._chunk_step = build_prefill_chunk_step(cfg, kv_group)
-        self._chunk_step_paged = build_prefill_chunk_step(cfg, kv_group,
-                                                          paged=True)
+        # the paged context is attention-only (DisaggEngine rejects it for
+        # stateful families), so the step exists only when selected
+        self._chunk_step_paged = build_prefill_chunk_step(
+            cfg, kv_group, paged=True) if prefill_context == "pages" else None
         self._prefill_ctx: Dict[int, Any] = {}
         self._ready: List[Request] = []       # completed, awaiting channel
         bind_counters(self, self.metrics, "prefill")
@@ -196,8 +209,10 @@ class PrefillWorker(_ChunkPrefillMixin):
     def _drain_ready(self, channel: PageHandoffChannel) -> int:
         """Export parked completions into the channel, oldest first,
         until it fills.  Export before release: the payload is a copy, so
-        it stays valid after the source pages return to the free list
-        (prefix-shared pages just decref back to the index)."""
+        it stays valid after the source pages (and slab) return to the
+        free lists (prefix-shared pages just decref back to the index).
+        A stateful family exports its slab, plus its pages for a
+        hybrid."""
         sent = 0
         while self._ready:
             req = self._ready[0]
@@ -208,7 +223,12 @@ class PrefillWorker(_ChunkPrefillMixin):
                 continue
             if channel.full:
                 break
-            payload = self.pool.export_pages(req.pages)
+            if self.pool.has_state:
+                payload: Dict = {"state": self.pool.export_state(req.slab)}
+                if req.pages:
+                    payload["kv"] = self.pool.export_pages(req.pages)
+            else:
+                payload = self.pool.export_pages(req.pages)
             self.scheduler.release(req)
             channel.push(req, payload)
             self._ready.pop(0)
@@ -220,7 +240,12 @@ class PrefillWorker(_ChunkPrefillMixin):
         chunk budget, park or retire this step's completions, drain
         again.  Returns handoffs pushed."""
         sent = self._drain_ready(channel)
-        self.scheduler.admit()
+        for req in self.scheduler.admit():
+            if req.status == RUNNING:
+                # a resumed snapshot (a bounced stateful request): its
+                # state (+ KV) is back, nothing to prefill -- park it for
+                # the handoff straight away
+                self._ready.append(req)
         for req in self._prefill_phase():
             if req.done:
                 # budget of 1 / instant EOS: never needs a decode side
@@ -259,7 +284,10 @@ class DecodeWorker:
         self.sync_guard = sync_guard
         self.metrics = registry if registry is not None else MetricRegistry()
         self._trace = trace if trace is not None else NULL_RECORDER
-        pool = PagedKVPool(cfg, n_pages, page_size, kv_group, device=device)
+        n_slabs = max_batch \
+            if "state" in PagedKVPool.page_kinds(cfg) else 0
+        pool = PagedKVPool(cfg, n_pages, page_size, kv_group,
+                           n_slabs=n_slabs, device=device)
         pool.register_gauges(self.metrics, "decode/pool")
         self.runner = DecodeRunner(pool, max_batch, registry=self.metrics,
                                    trace=self._trace,
@@ -291,12 +319,25 @@ class DecodeWorker:
         took = 0
         while len(channel) and self.runner.has_slot:
             req, payload = channel.peek()
-            pages = self.pool.alloc(int(payload["k_codes"].shape[1]))
+            nested = "state" in payload
+            kv = payload.get("kv") if nested else payload
+            n = int(kv["k_codes"].shape[1]) if kv is not None else 0
+            pages = self.pool.alloc(n) if n else []
             if pages is None:
                 break                     # decode pool dry: retry next step
+            slab = None
+            if nested:
+                slab = self.pool.alloc_slab()
+                if slab is None:          # state plane dry: roll back
+                    if pages:
+                        self.pool.free(pages)
+                    break
             with self._trace.span("channel_pull", rid=req.rid):
-                self.pool.import_pages(payload, pages)
-            self.runner.accept(req, pages)
+                if kv is not None:
+                    self.pool.import_pages(kv, pages)
+                if nested:
+                    self.pool.import_state(payload["state"], slab)
+            self.runner.accept(req, pages, slab)
             channel.pop()
             took += 1
         return took
@@ -390,7 +431,7 @@ class DisaggEngine:
 
     def __post_init__(self):
         from ..kernels.flash_decode import default_kv_block
-        PagedKVPool.page_kinds(self.cfg)
+        kinds = PagedKVPool.page_kinds(self.cfg)
         self.prefill_device = resolve_device(self.prefill_device)
         self.decode_device = resolve_device(self.decode_device)
         kv_group = self.policy.group_size if self.policy else None
@@ -413,6 +454,7 @@ class DisaggEngine:
             self.prefill_context = "pages" if self.prefix_cache else "carry"
         if self.prefill_context not in ("carry", "pages"):
             raise ValueError(self.prefill_context)
+        _check_stateful_context(kinds, self.cfg, self.prefill_context)
         if self.prefix_cache and self.prefill_context == "carry":
             raise ValueError(
                 "prefix_cache needs prefill_context='pages' (shared "

@@ -15,6 +15,14 @@ through the pages (the paged chunk-prefill kernel), prefix caching, and
 a K-step decode loop (the paged flash-decode kernel) that keeps every
 operand on the device and syncs one (B, K) token buffer per dispatch.
 
+Recurrent (rwkv6) and hybrid (jamba) families serve through the same
+engines: the static engine's ``quantized_state`` keeps their state as
+posit8 codes and round-trips it every step (the oracle of the paged
+pool's state slabs); the continuous engine gives each request one state
+slab, prefills in unpadded chunks on the carry context, writes the
+state into the slab once when prefill completes, and gathers and
+scatters the slabs of the running rows in the decode loop.
+
 Both engines pack the weights once when they are built and cast the tied
 read-out table to the compute dtype once then, not at every step.  The
 reference's jit has no counterpart: the port runs eagerly, and a
@@ -35,9 +43,11 @@ from ..configs.base import ModelConfig
 from ..core.formats import torch_dtype
 from ..core.policy import PrecisionPolicy
 from ..kernels.ops import PackedTensor
-from ..models import zoo
+from ..models import ssm, zoo
+from ..models.transformer import attn_key
 from ..obs import NULL_RECORDER, MetricRegistry, bind_counters
-from .paged_kv import PARKING_PAGE, PagedKVPool
+from .paged_kv import (PARKING_PAGE, PARKING_SLAB, POOL_KEYS, PagedKVPool,
+                       _tree_map, state_slab_bytes)
 from .scheduler import PREFILLING, RUNNING, Scheduler
 
 __all__ = ["build_prefill_step", "build_prefill_chunk_step",
@@ -47,15 +57,18 @@ __all__ = ["build_prefill_step", "build_prefill_chunk_step",
 
 def build_prefill_step(cfg: ModelConfig, last_logit_only: bool = False,
                        quantized_kv: bool = False,
-                       kv_group: Optional[int] = None):
+                       kv_group: Optional[int] = None,
+                       quantized_state: bool = False):
     """(params, batch) -> (logits, cache): the full-sequence forward that
-    also fills the KV cache (posit8 under ``quantized_kv``)."""
+    also fills the KV cache (posit8 under ``quantized_kv``) and the
+    recurrent state (posit8 too with ``quantized_state``)."""
 
     def prefill(params, batch):
         logits, cache = zoo.apply_model(params, batch, cfg,
                                         last_only=last_logit_only)
         if quantized_kv:
-            cache = zoo.quantize_cache(cache, kv_group)
+            cache = zoo.quantize_cache(cache, kv_group,
+                                       quantize_state=quantized_state)
         return logits, cache
 
     return prefill
@@ -107,7 +120,12 @@ def _serving_params(params, cfg: ModelConfig,
 
 
 class ServeEngine:
-    """Static-batch serving with greedy / temperature sampling."""
+    """Static-batch serving with greedy / temperature sampling.
+
+    ``quantized_state`` (recurrent and hybrid families, with
+    ``quantized_kv``): the state after prefill is quantized to posit8
+    once and every decode step round-trips it through posit8 -- what the
+    continuous engine's state slabs hold, so this is their oracle."""
 
     # cache leaves with a sequence axis, laid out (L, B, S, H, ...)
     _SEQ_KEYS = frozenset({"k", "v", "k_codes", "v_codes", "k_scale",
@@ -117,17 +135,20 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 2048,
                  quantized_kv: bool = False,
-                 policy: Optional[PrecisionPolicy] = None, device=None):
+                 policy: Optional[PrecisionPolicy] = None, device=None,
+                 quantized_state: bool = False):
         self.cfg = cfg
         self.max_len = max_len
         self.quantized_kv = quantized_kv
+        self.quantized_state = quantized_state
         self.policy = policy
         self.device = resolve_device(device)
         self.params = _serving_params(params, cfg, policy, self.device)
         kv_group = policy.group_size if policy else None
         self._prefill = build_prefill_step(cfg, last_logit_only=True,
                                            quantized_kv=quantized_kv,
-                                           kv_group=kv_group)
+                                           kv_group=kv_group,
+                                           quantized_state=quantized_state)
         self._step = build_serve_step(cfg)
 
     @torch.inference_mode()
@@ -148,6 +169,10 @@ class ServeEngine:
         batch = {"tokens": tokens}
         pad = None
         if lengths is not None:
+            if self.cfg.family not in ("dense", "moe"):
+                raise ValueError(
+                    "ragged prompts need a pure-attention family with "
+                    "default RoPE (SSM state would still absorb pads)")
             lengths = torch.as_tensor(np.asarray(lengths), dtype=torch.int32,
                                       device=self.device)
             pad = (s0 - lengths).to(torch.int32)
@@ -165,10 +190,13 @@ class ServeEngine:
         return torch.cat(outs, dim=1).cpu().numpy().astype(np.int32)
 
     def _pad_cache(self, cache):
-        """Grow the prefill-length cache to ``max_len`` slots (seq axis 2)."""
+        """Grow the prefill-length KV leaves to ``max_len`` slots (seq axis
+        2), at any depth of the tree; recurrent state passes through."""
         out = {}
         for key, x in cache.items():
-            if key in self._SEQ_KEYS and x.shape[2] < self.max_len:
+            if isinstance(x, dict):
+                x = self._pad_cache(x)
+            elif key in self._SEQ_KEYS and x.shape[2] < self.max_len:
                 fill = 1.0 if key in self._SCALE_KEYS else 0.0
                 full = torch.full(x.shape[:2] + (self.max_len,) + x.shape[3:],
                                   fill, dtype=x.dtype, device=x.device)
@@ -189,14 +217,20 @@ def build_prefill_chunk_step(cfg: ModelConfig,
     chunked prefill: forward one CHUNK of C tokens at positions
     ``start .. start+C-1``, attending causally to ``ctx`` plus itself.
 
-    ``paged=False`` (carry): ``ctx`` is the bf16 KV carry ``{"k", "v"}``
-    (L, 1, T, Kh, Dh); returns (logits (1, C, V), chunk kv, chunk kv
-    quantized for ``PagedKVPool.write_chunk``).  ``paged=True``: ``ctx``
-    is the pool leaves plus ``page_table`` (1, NP); the chunk is written
-    into its pages in place and read back through the page table (the
-    paged chunk-prefill kernel); returns (logits, ctx)."""
-    if paged:
-        PagedKVPool.page_kinds(cfg)
+    ``paged=False`` (carry): ``ctx`` is the family's ``init_cache`` tree:
+    a bf16 KV carry ``{"k", "v"}`` (L, 1, T, Kh, Dh) for attention layers
+    and the f32 state carried from the previous chunk for recurrent ones;
+    returns (logits (1, C, V), the chunk's cache -- its kv and its final
+    state -- and that cache with its kv quantized for
+    ``PagedKVPool.write_chunk``).  ``paged=True`` (attention-only
+    families): ``ctx`` is the pool leaves plus ``page_table`` (1, NP); the
+    chunk is written into its pages in place and read back through the
+    page table (the paged chunk-prefill kernel); returns (logits, ctx)."""
+    if paged and cfg.family not in ("dense", "moe"):
+        raise ValueError(
+            f"prefill_context='pages' re-reads the prefix through the "
+            f"page table, but family {cfg.family!r} carries recurrent "
+            f"state that never lands in pages: chunk on the carry path")
     if cfg.rope_kind != "default":
         raise ValueError("chunked prefill serves 1-D token streams "
                          f"(rope_kind={cfg.rope_kind!r})")
@@ -213,6 +247,18 @@ def build_prefill_chunk_step(cfg: ModelConfig,
         return logits, new_cache, zoo.quantize_cache(new_cache, kv_group)
 
     return chunk_step
+
+
+def _check_stateful_context(kinds, cfg, prefill_context: str) -> None:
+    """Recurrent state never lands in pages, so a stateful family cannot
+    take the pages context (nor, with it, the prefix cache)."""
+    if "state" in kinds and prefill_context == "pages":
+        raise ValueError(
+            f"family {cfg.family!r} carries recurrent state, which never "
+            f"lands in pages and cannot be re-read through a page table: "
+            f"serve it with prefill_context='carry' (which also rules out "
+            f"prefix_cache -- a cached prefix cannot reproduce the state "
+            f"of tokens this request never forwarded)")
 
 
 _M32 = 0xFFFFFFFF
@@ -273,8 +319,9 @@ def _build_decode_loop(cfg: ModelConfig, temperature: float, k_steps: int,
     """The K-step decode dispatch of the continuous engine.
 
     (params, tokens (B, 1), positions (B,), cache {pool leaves},
-     page_table (B, NP), done (B,) bool, budget (B,), eos (B,), rids (B,),
-     gen_idx (B,)) -> sampled (B, K) int32; the pool is written in place.
+     page_table (B, NP), slab_table (B,), done (B,) bool, budget (B,),
+     eos (B,), rids (B,), gen_idx (B,)) -> sampled (B, K) int32; the pool
+    is written in place.
 
     A Python loop of ``k_steps`` decode+sample iterations on device
     tensors (the reference's ``lax.scan``), static in shape: fused
@@ -282,19 +329,39 @@ def _build_decode_loop(cfg: ModelConfig, temperature: float, k_steps: int,
     done-mask.  A row finishes when it samples its ``eos`` or spends its
     ``budget``; finished and padded rows freeze their token and position
     and re-map their page-table row to the parking page, so their
-    remaining iterations write page 0 at position 0.  Nothing is read
-    back to the host inside the loop."""
+    remaining iterations write page 0 at position 0.  Recurrent layers
+    (ssm / hybrid) gather their rows' posit8 state slabs by
+    ``slab_table`` (finished rows: the parking slab), decode round-trips
+    the state through posit8 inside the model, and the slabs are
+    scattered back each iteration.  Nothing is read back to the host
+    inside the loop."""
+    has_state = cfg.family in ("ssm", "hybrid")
+    has_kv = cfg.family != "ssm"
+    akey = attn_key(cfg) if cfg.family == "hybrid" else None
 
-    def loop(params, tokens, positions, cache, page_table, done, budget,
-             eos, rids, gen_idx):
+    def loop(params, tokens, positions, cache, page_table, slab_table, done,
+             budget, eos, rids, gen_idx):
         out = torch.empty((tokens.shape[0], k_steps), dtype=torch.int32,
                           device=tokens.device)
         for i in range(k_steps):
-            step_cache = dict(cache)
-            step_cache["page_table"] = torch.where(done[:, None],
-                                                   PARKING_PAGE, page_table)
-            step_cache["positions"] = torch.where(done, 0, positions)
+            if has_state:
+                slab_idx = torch.where(done, PARKING_SLAB, slab_table).long()
+                state = _tree_map(lambda leaf: leaf[:, slab_idx],
+                                  cache["state"])
+            if not has_kv:
+                step_cache = state
+            else:
+                kv = {k: cache[k] for k in POOL_KEYS}
+                step_cache = dict(state, **{akey: kv}) if has_state \
+                    else kv
+                step_cache["page_table"] = torch.where(
+                    done[:, None], PARKING_PAGE, page_table)
+                step_cache["positions"] = torch.where(done, 0, positions)
             logits, _ = zoo.decode_model(params, tokens, cfg, step_cache, 0)
+            if has_state:                # the gathered state, updated
+                def put(buf, new):
+                    buf[:, slab_idx] = new
+                _tree_map(put, cache["state"], state)
             nxt = sample_tokens(logits[:, 0], temperature, seed, rids,
                                 gen_idx).to(torch.int32)
             nxt = torch.where(done, tokens[:, 0].to(torch.int32), nxt)
@@ -321,26 +388,33 @@ def _decode_horizon(req, decode_steps: int) -> int:
 class _PageTableCache:
     """Epoch-cached device page table: ``get`` re-uploads the (B, NP)
     table only when the scheduler epoch or the running-row order
-    changed; otherwise the resident tensor is bit-identical and reused."""
+    changed; otherwise the resident tensor is bit-identical and reused.
+    The (B,) slab table rides the same entry: a row's slab can only
+    change on the transitions that bump the epoch."""
 
     def __init__(self):
         self.dev = None
+        self.slab_dev = None
         self.epoch = -1
         self.rows: List[int] = []
 
     def get(self, running, epoch: int, b: int, n_pages_per_req: int,
             device):
-        """-> (page table, uploaded?) for the rid-ordered batch."""
+        """-> (page table, slab table, uploaded?) for the rid-ordered
+        batch."""
         rows = [req.rid for req in running]
         if self.dev is None or epoch != self.epoch or rows != self.rows:
-            page_table = np.zeros((b, n_pages_per_req), np.int32)
+            page_table = np.zeros((b, n_pages_per_req + 1), np.int32)
             for row, req in enumerate(running):
                 page_table[row, :len(req.pages)] = req.pages
-            self.dev = torch.from_numpy(page_table).to(device)
+                if req.slab is not None:
+                    page_table[row, -1] = req.slab
+            both = torch.from_numpy(page_table).to(device)
+            self.dev, self.slab_dev = both[:, :-1], both[:, -1]
             self.epoch = epoch
             self.rows = rows
-            return self.dev, True
-        return self.dev, False
+            return self.dev, self.slab_dev, True
+        return self.dev, self.slab_dev, False
 
 
 def _dispatch_decode_loop(loop, params, pool, running, b: int,
@@ -348,9 +422,9 @@ def _dispatch_decode_loop(loop, params, pool, running, b: int,
                           n_pages_per_req: int, guard: bool):
     """Launch one K-step decode dispatch for the rid-ordered ``running``
     batch: build the (B,) host operands, stage them on the device in ONE
-    copy, fetch the epoch-cached page table, then run the loop (under
-    the sync guard when ``guard``).  Returns the in-flight dispatch
-    record; its (B, K) token buffer is still on the device."""
+    copy, fetch the epoch-cached page and slab tables, then run the loop
+    (under the sync guard when ``guard``).  Returns the in-flight
+    dispatch record; its (B, K) token buffer is still on the device."""
     ops = np.zeros((7, b), np.int32)
     tokens, positions, done, budget, eos, rids, gen_idx = ops
     done[:] = 1                          # padding rows stay dead
@@ -365,12 +439,12 @@ def _dispatch_decode_loop(loop, params, pool, running, b: int,
         rids[row] = req.rid
         gen_idx[row] = len(req.generated)
     dev = torch.from_numpy(ops).to(pool.device)
-    dev_table, uploaded = pt_cache.get(running, epoch, b, n_pages_per_req,
-                                       pool.device)
+    dev_table, slab_table, uploaded = pt_cache.get(
+        running, epoch, b, n_pages_per_req, pool.device)
     with _sync_guard(guard):
         toks_dev = loop(params, dev[0][:, None].long(), dev[1],
-                        pool.device_state(), dev_table, dev[2].bool(), dev[3],
-                        dev[4], dev[5], dev[6])
+                        pool.device_state(), dev_table, slab_table,
+                        dev[2].bool(), dev[3], dev[4], dev[5], dev[6])
     return {"running": running, "budget": budget.copy(),
             "toks_dev": toks_dev, "uploaded": int(uploaded)}
 
@@ -393,29 +467,45 @@ def _apply_decode_tokens(disp, toks: np.ndarray, retire) -> int:
 
 
 class _ChunkPrefillMixin:
-    """Chunked paged prefill of the continuous engine (dense family).  The
-    host object provides ``cfg``, ``params``, ``device``, ``scheduler``
-    (and its ``pool``), ``page_size``, ``max_pages_per_req``,
+    """Chunked paged prefill, shared by ``ContinuousEngine`` and the
+    disaggregated ``PrefillWorker``.  The host object provides ``cfg``,
+    ``params``, ``device``, ``scheduler`` (and its ``pool``),
+    ``page_size``, ``max_pages_per_req``,
     ``prefill_chunk_tokens``, ``prefill_context``, ``temperature``,
     ``seed``, the chunk steps ``_chunk_step`` / ``_chunk_step_paged``,
     the ``_prefill_ctx`` carry dict, a ``prefill_tokens_computed``
     counter and a ``_trace`` recorder."""
 
     def _empty_ctx(self, width: int = 0):
-        """A zero bf16 carry {"k", "v"} (L, 1, width, Kh, Dh)."""
+        """The family's zero cache: a bf16 carry {"k", "v"} (L, 1, width,
+        Kh, Dh), the zero rwkv state stack, or a hybrid group's mix of
+        both."""
         return zoo.init_cache(self.cfg, 1, width, device=self.device)
 
     def _grow_ctx(self, ctx, kv, start: int, ln: int):
-        """Fold one non-final chunk's kv into the prefill carry, which is
-        allocated ONCE at the prompt's page-rounded width and written in
-        place from then on (the reference donates it to a
-        ``dynamic_update_slice``)."""
-        if ctx["k"].shape[2] == 0:
-            ctx = self._empty_ctx(self.pool.pages_for(ln) * self.page_size)
+        """Fold one non-final chunk's cache into the prefill carry.  KV
+        GROWS: the carry is allocated ONCE at the prompt's page-rounded
+        width and written in place from then on (the reference donates it
+        to a ``dynamic_update_slice``).  Recurrent state is REPLACED: the
+        chunk's final state is all the next chunk needs."""
+        if not self.pool.has_kv:
+            return kv                    # rwkv: the state stack replaces
+        if self.pool.has_state:          # hybrid: the attention sub grows
+            ak = attn_key(self.cfg)
+            out = dict(kv)
+            out[ak] = self._grow_kv(ctx[ak], kv[ak], start, ln, ak)
+            return out
+        return self._grow_kv(ctx, kv, start, ln, None)
+
+    def _grow_kv(self, carry, kv, start: int, ln: int, sub):
+        if carry["k"].shape[2] == 0:
+            carry = self._empty_ctx(self.pool.pages_for(ln) * self.page_size)
+            if sub is not None:
+                carry = carry[sub]
         c = kv["k"].shape[2]
         for key in ("k", "v"):
-            ctx[key][:, :, start:start + c] = kv[key]
-        return ctx
+            carry[key][:, :, start:start + c] = kv[key]
+        return carry
 
     def _sample(self, lg: torch.Tensor, req) -> int:
         """The first token, from one (V,) logit row at prefill completion:
@@ -440,7 +530,14 @@ class _ChunkPrefillMixin:
         ln = prefix.size
         # past the matched shared pages of a prefix-cache hit
         start = req.prefilled
-        if self.prefill_chunk_tokens is None:
+        stateful = self.pool.has_state
+        if stateful:
+            # UNPADDED: every forwarded token runs through the recurrent
+            # state, so a pad token would corrupt it (``write_chunk`` pads
+            # a trailing partial page of KV instead)
+            c = ln - start if self.prefill_chunk_tokens is None \
+                else min(self.prefill_chunk_tokens, ln - start)
+        elif self.prefill_chunk_tokens is None:
             # monolithic: one chunk covering every remaining page slot
             c = self.pool.pages_for(ln) * self.page_size - start
         else:
@@ -466,10 +563,21 @@ class _ChunkPrefillMixin:
                 ctx = self._empty_ctx()
             logits, kv, chunk_q = self._chunk_step(self.params, toks, ctx,
                                                    start_t)
-            self.pool.write_chunk(chunk_q, req.pages, start)
+            if self.pool.has_kv:
+                self.pool.write_chunk(
+                    chunk_q[attn_key(self.cfg)] if stateful else chunk_q,
+                    req.pages, start)
             if start + real < ln:        # full chunk: extend the carry
                 self._prefill_ctx[req.rid] = self._grow_ctx(ctx, kv, start,
                                                             ln)
+            elif stateful:
+                # prefill completion writes the carried state into the
+                # request's slab ONCE, quantized as the static engine
+                # quantizes its cache after prefill
+                state = kv if not self.pool.has_kv else {
+                    k: v for k, v in kv.items() if k != attn_key(self.cfg)}
+                self.pool.write_state(
+                    ssm.quantize_state(state, self.pool.kv_group), req.slab)
         req.prefilled = start + real
         self.prefill_tokens_computed += real
         self._trace.event("PREFILL_CHUNK", rid=req.rid, start=start,
@@ -527,6 +635,12 @@ class ContinuousEngine(_ChunkPrefillMixin):
     temperature 0 with ``page_size == default_kv_block(max_len)`` and the
     carry context, outputs match per-request ``ServeEngine.generate``.
 
+    Recurrent and hybrid families hold ``n_state_slabs`` state slabs
+    (default ``max_batch``: one per batch slot, so slabs never gate
+    admission below it); every admitted request holds one for its whole
+    lifetime.  They prefill on the carry context only, so neither
+    ``prefill_context="pages"`` nor ``prefix_cache`` serves them.
+
     ``sync_guard`` runs each decode loop under
     ``torch.cuda.set_sync_debug_mode("error")`` on a CUDA device, so a
     hidden host-device sync on the decode path raises.  ``trace`` is an
@@ -547,6 +661,7 @@ class ContinuousEngine(_ChunkPrefillMixin):
     prefill_context: Optional[str] = None
     prefix_cache: bool = False
     decode_steps: int = 1
+    n_state_slabs: Optional[int] = None
     trace: Any = None
     sync_guard: bool = False
     device: Any = None
@@ -562,7 +677,7 @@ class ContinuousEngine(_ChunkPrefillMixin):
 
     def __post_init__(self):
         from ..kernels.flash_decode import default_kv_block
-        PagedKVPool.page_kinds(self.cfg)
+        kinds = PagedKVPool.page_kinds(self.cfg)
         self.device = resolve_device(self.device)
         self.params = _serving_params(self.params, self.cfg, self.policy,
                                       self.device)
@@ -588,6 +703,7 @@ class ContinuousEngine(_ChunkPrefillMixin):
             self.prefill_context = "pages" if self.prefix_cache else "carry"
         if self.prefill_context not in ("carry", "pages"):
             raise ValueError(self.prefill_context)
+        _check_stateful_context(kinds, self.cfg, self.prefill_context)
         if self.prefix_cache and self.prefill_context == "carry":
             raise ValueError(
                 "prefix_cache shares posit8 pages a hit request never "
@@ -602,8 +718,12 @@ class ContinuousEngine(_ChunkPrefillMixin):
         if self._trace.enabled and self._trace.hist_registry is None:
             self._trace.hist_registry = self.metrics
         bind_counters(self, self.metrics, "engine")
+        n_slabs = 0
+        if "state" in kinds:
+            n_slabs = self.n_state_slabs \
+                if self.n_state_slabs is not None else self.max_batch
         pool = PagedKVPool(self.cfg, self.n_pages, self.page_size, kv_group,
-                           device=self.device)
+                           n_slabs=n_slabs, device=self.device)
         pool.register_gauges(self.metrics, "pool")
         self.scheduler = Scheduler(pool, self.max_batch,
                                    max_pages_per_req=self.max_pages_per_req,
@@ -613,9 +733,17 @@ class ContinuousEngine(_ChunkPrefillMixin):
             "engine/kv_bytes_per_step_model",
             fn=lambda: self.pool.modeled_bytes_per_step(self.last_positions)
             if self.last_positions else 0.0)
+        # the state term alone: a slab read and rewritten per live request
+        self.metrics.gauge(
+            "engine/state_bytes_per_step_model",
+            fn=lambda: 2.0 * state_slab_bytes(self.cfg, kv_group)
+            * len(self.last_positions) if self.pool.has_state else 0.0)
         self._chunk_step = build_prefill_chunk_step(self.cfg, kv_group)
+        # the paged-context step is attention-only (its constructor rejects
+        # stateful families), so it exists only when selected
         self._chunk_step_paged = build_prefill_chunk_step(
-            self.cfg, kv_group, paged=True)
+            self.cfg, kv_group, paged=True) \
+            if self.prefill_context == "pages" else None
         # bf16 carries of requests mid-prefill (rid -> {"k", "v"})
         self._prefill_ctx: Dict[int, Any] = {}
         self._decode_loop = _build_decode_loop(

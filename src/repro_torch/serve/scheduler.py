@@ -40,8 +40,13 @@ queue front with ``reaccept``.  ``DecodeRunner`` is the decode side's
 half: accepted handoffs, horizon claims on the decode pool, bouncing the
 youngest request when that pool runs dry, retirement.
 
-The reference's snapshot/resume of recurrent-state requests comes with a
-later slice of the port.
+RECURRENT STATE (ssm / hybrid families): a request also holds ONE state
+slab for its whole lifetime, allocated at admission, so admission is
+gated on a free slab too.  Preempting (or bouncing) a RUNNING stateful
+request SNAPSHOTS it -- its slab, plus its KV pages for a hybrid,
+exported to ``Request.resume`` -- and re-admission imports the snapshot
+and goes straight back to RUNNING: nothing is re-prefilled and nothing
+is charged as wasted.
 """
 
 from __future__ import annotations
@@ -79,6 +84,10 @@ class Request:
     preemptions: int = 0
     prefilled: int = 0                  # chunk cursor: prefix tokens paged in
     cached_tokens: int = 0              # leading tokens served by shared pages
+    slab: Optional[int] = None          # state-slab id (recurrent families)
+    # preemption snapshot of a stateful request: its exported posit8
+    # state (+ KV pages for hybrids); resume imports it and decodes on
+    resume: Optional[Dict] = None
 
     @property
     def prefix(self) -> np.ndarray:
@@ -245,6 +254,15 @@ class PrefixIndex:
         return n
 
 
+def _snapshot(pool: PagedKVPool, req: Request) -> Dict:
+    """The exact-resume payload of a RUNNING stateful request: its slab,
+    plus its KV pages for a hybrid (both copies, valid once freed)."""
+    snap: Dict = {"state": pool.export_state(req.slab)}
+    if req.pages:
+        snap["kv"] = pool.export_pages(req.pages)
+    return snap
+
+
 class Scheduler:
     """FIFO admission + LIFO preemption over a shared ``PagedKVPool``."""
 
@@ -308,6 +326,13 @@ class Scheduler:
                 f"{self.max_pages_per_req * self.pool.page_size} "
                 f"({need} pages > the {self.max_pages_per_req}-page "
                 f"table row of the engine's decode step)")
+        # a recurrent/hybrid request needs one state slab for its whole
+        # lifetime, so a pool without any can never serve it
+        if self.pool.has_state and self.pool.n_slabs < 1:
+            raise ValueError(
+                f"family {self.pool.cfg.family!r} keeps per-request "
+                f"recurrent state, but the pool has n_slabs=0: size the "
+                f"pool with at least one state slab")
         req = Request(self._next_rid, prompt, int(max_new_tokens), eos_id)
         self._next_rid += 1
         self.waiting.append(req)
@@ -341,6 +366,21 @@ class Scheduler:
         admitted = []
         while self.waiting and len(self.running) < self.max_batch:
             head = self.waiting[0]
+            if head.resume is not None:
+                # a preemption snapshot: import it and go straight back
+                # to RUNNING; the head blocks (strict FIFO) until it fits
+                if not self._admit_resume(head):
+                    break
+                self.waiting.popleft()
+                self.running.append(head)
+                admitted.append(head)
+                self._trace.event("RESUME", rid=head.rid,
+                                  generated=len(head.generated))
+                continue
+            # a stateful head needs its ONE slab now (admitted requests
+            # hold theirs already, so free_slabs is the whole claim)
+            if self.pool.has_state and self.pool.free_slabs < 1:
+                break
             shared = self.prefix.acquire(head.prompt) \
                 if self.prefix is not None else []
             need = self.pool.pages_for(len(head.prefix) + 1) - len(shared)
@@ -351,6 +391,8 @@ class Scheduler:
             self.waiting.popleft()
             head.status = PREFILLING
             head.pages = list(shared)
+            if self.pool.has_state:
+                head.slab = self.pool.alloc_slab()
             head.cached_tokens = len(shared) * self.pool.page_size
             head.prefilled = head.cached_tokens
             if shared:
@@ -365,6 +407,36 @@ class Scheduler:
         if admitted:
             self.epoch += 1
         return admitted
+
+    def _admit_resume(self, head: Request) -> bool:
+        """Import a preemption snapshot: allocate the pages and slab it
+        needs, write the payload back, RUNNING.  False (nothing changed)
+        if the pool cannot host it yet."""
+        snap = head.resume
+        kv = snap.get("kv")
+        n = int(kv["k_codes"].shape[1]) if kv is not None else 0
+        if n > self._admission_budget():
+            return False
+        if self.pool.has_state and self.pool.free_slabs < 1:
+            return False
+        pages: List[int] = []
+        if n:
+            if self.prefix is not None and self.pool.free_pages < n:
+                self.prefix.evict(n - self.pool.free_pages)
+            got = self.pool.alloc(n)
+            if got is None:
+                return False
+            pages = got
+        slab = self.pool.alloc_slab() if self.pool.has_state else None
+        if kv is not None:
+            self.pool.import_pages(kv, pages)
+        if "state" in snap:
+            self.pool.import_state(snap["state"], slab)
+        head.pages = pages
+        head.slab = slab
+        head.resume = None
+        head.status = RUNNING
+        return True
 
     def prefill_complete(self, req: Request) -> None:
         """PREFILLING -> RUNNING; under prefix caching the request's whole
@@ -404,7 +476,10 @@ class Scheduler:
     def ensure_capacity(self, req: Request, horizon: int = 1) -> bool:
         """Own every page the next ``horizon`` decode writes land in
         (slots ``position .. position+horizon-1``).  False if ``req``
-        itself was preempted."""
+        itself was preempted.  Pure-recurrent families: always True (the
+        slab allocated at admission is the whole footprint)."""
+        if not self.pool.has_kv:
+            return True
         last = req.position + max(int(horizon), 1) - 1
         return self._grow(req, last // self.pool.page_size + 1)
 
@@ -414,24 +489,33 @@ class Scheduler:
         return self._grow(req, self.pool.pages_for(upto))
 
     def preempt(self, req: Request) -> None:
-        """Free the victim's pages and put it back at the FRONT of the
-        queue; it keeps its generated tokens and re-prefills from chunk
-        0.  Tokens served off shared pages were never computed by it, so
-        they are not counted as wasted."""
+        """Free the victim's pages (and slab) and put it back at the FRONT
+        of the queue; it keeps its generated tokens and re-prefills from
+        chunk 0.  Tokens served off shared pages were never computed by
+        it, so they are not counted as wasted.  A RUNNING stateful victim
+        is snapshotted instead (its slab, plus KV pages for a hybrid):
+        resume imports it bitwise, so nothing is wasted."""
         assert req.status in (RUNNING, PREFILLING), req.status
         self._trace.event("PREEMPT", rid=req.rid, was=req.status)
+        snapshot = self.pool.has_state and req.status == RUNNING
         if req.status == PREFILLING:
             self.prefill_preemptions += 1
             self.wasted_prefill_tokens += max(
                 req.prefilled - req.cached_tokens, 0)
+        elif snapshot:
+            req.resume = _snapshot(self.pool, req)
         else:
             self.wasted_prefill_tokens += max(
                 req.position + 1 - req.cached_tokens, 0)
         self.pool.free(req.pages)
         req.pages = []
-        req.prefilled = 0
-        req.cached_tokens = 0
-        req.next_token = -1
+        if req.slab is not None:
+            self.pool.free_slab(req.slab)
+            req.slab = None
+        if not snapshot:
+            req.prefilled = 0
+            req.cached_tokens = 0
+            req.next_token = -1
         req.status = WAITING
         req.preemptions += 1
         self.preemption_count += 1
@@ -446,10 +530,13 @@ class Scheduler:
         victim whose pages lived in the decode pool, which the runner
         already freed.  It keeps its generated tokens and re-prefills
         prompt+generated on re-admission; its whole prefix counts as
-        wasted, as a RUNNING victim's does."""
+        wasted, as a RUNNING victim's does (a stateful one resumes from
+        its snapshot and wastes nothing)."""
         assert req.status == WAITING and not req.pages, \
             (req.status, req.pages)
-        self.wasted_prefill_tokens += req.position + 1
+        # a stateful bounce carries a snapshot: resume is exact
+        if req.resume is None:
+            self.wasted_prefill_tokens += req.position + 1
         req.preemptions += 1
         self.preemption_count += 1
         self.preempted_log.append(req.rid)
@@ -463,6 +550,9 @@ class Scheduler:
         assert req.status == RUNNING
         self.pool.free(req.pages)
         req.pages = []
+        if req.slab is not None:
+            self.pool.free_slab(req.slab)
+            req.slab = None
         req.status = FINISHED
         self.running.remove(req)
         self.finished[req.rid] = req
@@ -481,6 +571,9 @@ class Scheduler:
         assert req.status == RUNNING, req.status
         self.pool.free(req.pages)
         req.pages = []
+        if req.slab is not None:
+            self.pool.free_slab(req.slab)
+            req.slab = None
         self.running.remove(req)
         self.epoch += 1
 
@@ -524,18 +617,24 @@ class DecodeRunner:
     def has_slot(self) -> bool:
         return len(self.running) < self.max_batch
 
-    def accept(self, req: Request, pages: List[int]) -> None:
+    def accept(self, req: Request, pages: List[int],
+               slab: Optional[int] = None) -> None:
         """Take ownership of a handed-off request whose payload has been
-        imported into this pool's ``pages`` (its page-table row here)."""
+        imported into this pool's ``pages`` (its page-table row here) and,
+        for recurrent families, state ``slab``."""
         assert self.has_slot and req.status == RUNNING, req.status
         req.pages = list(pages)
+        req.slab = slab
         self.running.append(req)
         self.epoch += 1
 
     def ensure_capacity(self, req: Request, horizon: int = 1) -> bool:
         """Own every page the next ``horizon`` decode writes land in,
         bouncing the youngest accepted request when the pool is dry.
-        False if ``req`` itself was bounced."""
+        False if ``req`` itself was bounced.  Pure-recurrent: always True
+        (the slab accepted with the handoff is the whole footprint)."""
+        if not self.pool.has_kv:
+            return True
         last = req.position + max(int(horizon), 1) - 1
         need = last // self.pool.page_size + 1
         grew = False
@@ -556,13 +655,21 @@ class DecodeRunner:
     def bounce(self, req: Request) -> None:
         """Evict a running request from the decode side: free its pages
         and reset its prefill cursor, so the admitter re-prefills
-        prompt+generated from chunk 0 (the generated tokens survive)."""
+        prompt+generated from chunk 0 (the generated tokens survive).  A
+        stateful request snapshots instead, as ``Scheduler.preempt`` does:
+        the prefill side hands the snapshot back across untouched."""
         assert req.status == RUNNING, req.status
-        req.next_token = -1
-        req.prefilled = 0
-        req.cached_tokens = 0
+        if self.pool.has_state:
+            req.resume = _snapshot(self.pool, req)
+        else:
+            req.next_token = -1
+            req.prefilled = 0
+            req.cached_tokens = 0
         self.pool.free(req.pages)
         req.pages = []
+        if req.slab is not None:
+            self.pool.free_slab(req.slab)
+            req.slab = None
         req.status = WAITING
         self.bounce_count += 1
         self.running.remove(req)
@@ -576,11 +683,14 @@ class DecodeRunner:
         return out
 
     def retire(self, req: Request) -> None:
-        """RUNNING -> FINISHED on the decode side; its pages return to
-        the decode pool the same step."""
+        """RUNNING -> FINISHED on the decode side; its pages and slab
+        return to the decode pool the same step."""
         assert req.status == RUNNING, req.status
         self.pool.free(req.pages)
         req.pages = []
+        if req.slab is not None:
+            self.pool.free_slab(req.slab)
+            req.slab = None
         req.status = FINISHED
         self.running.remove(req)
         self.finished[req.rid] = req

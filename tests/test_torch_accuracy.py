@@ -23,7 +23,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 
-from _torch_bridge import jax_to_numpy  # noqa: E402
+from _torch_bridge import jax_to_numpy, one_torch_thread  # noqa: E402,F401
 from repro.core import formats as jfmt  # noqa: E402
 from repro.core import quant as jq  # noqa: E402
 from repro.core.policy import PrecisionPolicy as JPolicy  # noqa: E402
@@ -76,15 +76,6 @@ def _leaves(tree, path=""):
 def _bridge(tree):
     return params_from_numpy(jax_to_numpy(tree), device="cpu")
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are small: one intra-op thread a worker keeps the
-    parallel test run from oversubscribing the cores."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 
-from _torch_bridge import jax_to_numpy  # noqa: E402
+from _torch_bridge import jax_to_numpy, one_torch_thread  # noqa: E402,F401
 from repro import obs as jobs  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402
@@ -314,9 +314,9 @@ def test_engine_rejects_bad_configurations(params):
     with pytest.raises(ValueError, match="must be a multiple"):
         ContinuousEngine(TCFG, params[1], device="cpu",
                          **{**ENGINE, "max_len": 56})
-    with pytest.raises(ValueError, match="dense"):
-        ContinuousEngine(dataclasses.replace(TCFG, family="moe"), params[1],
-                         device="cpu", **ENGINE)
+    with pytest.raises(ValueError, match="no page-kind mapping"):
+        ContinuousEngine(dataclasses.replace(TCFG, family="audio"),
+                         params[1], device="cpu", **ENGINE)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ContinuousEngine(TCFG, params[1], **ENGINE)

@@ -23,7 +23,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 
-from _torch_bridge import jax_to_numpy  # noqa: E402
+from _torch_bridge import jax_to_numpy, one_torch_thread  # noqa: E402,F401
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402
 from repro.obs import TraceRecorder as JaxRecorder  # noqa: E402
@@ -47,15 +47,6 @@ def _reqs(seed, spec):
     return [(rng.integers(0, CFG.vocab, (n,)).astype(np.int32), g)
             for n, g in spec]
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The reduced model's tensors are small: one intra-op thread a
-    worker keeps the parallel test run from oversubscribing the cores."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

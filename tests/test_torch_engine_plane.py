@@ -19,7 +19,7 @@ import torch
 sys.path.insert(0, os.path.dirname(__file__))
 
 from _hyp import given, settings, st  # noqa: E402
-from _torch_bridge import jax_to_numpy  # noqa: E402
+from _torch_bridge import jax_to_numpy, one_torch_thread  # noqa: E402,F401
 from repro.core import formats as jfmt  # noqa: E402
 from repro.core import npe as jnpe  # noqa: E402
 from repro.core import quire as jquire  # noqa: E402
@@ -81,6 +81,12 @@ def test_dequant_exactly_equal_to_jax(name, group, layout):
     assert got.dtype == torch.float32 and got.shape == (100, 72)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(tops.unpack_tensor(tt).numpy(), want)
+    # the bf16 output: JAX's f32 matrix cast to bf16, bit for bit
+    half = tops.dequant(tt, torch.bfloat16)
+    assert half.dtype == torch.bfloat16
+    assert torch.equal(half.view(torch.int16),
+                       torch.tensor(want).to(torch.bfloat16)
+                       .view(torch.int16))
 
 
 def test_dequant_refuses_stacked_and_bad_layouts():
@@ -102,6 +108,25 @@ def test_dequant_cpu_wrapper_takes_plain_version_and_counts_nothing():
     assert dequant.launches == before
     assert torch.equal(got, dequant_plain(t.words, t.scales, t.spec, 96, 40))
     assert torch.equal(got, tops.to_dense(t))
+
+
+@pytest.mark.parametrize("name", PACKABLE)
+def test_dequant_bf16_output_equals_to_dense(name):
+    """The bf16 output (the MoE expert slices' route) is the f32 product
+    rounded once: equal to the f32 output cast, and to ``to_dense`` of
+    the stack in bf16, bit for bit."""
+    spec = tfmt.FORMATS[name]
+    t = tops.pack_tensor(spec, torch.from_numpy(_weight((2, 96, 40), 6)),
+                         group_size=32)
+    got = dequant(t[1].words, t[1].scales, spec, 96, 40, torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (96, 40)
+    assert torch.equal(got.view(torch.int16),
+                       dequant_plain(t[1].words, t[1].scales, spec, 96, 40)
+                       .to(torch.bfloat16).view(torch.int16))
+    if spec.bits <= 8:        # decodes exactly in bf16: one rounding either way
+        assert torch.equal(got, tops.to_dense(t, torch.bfloat16)[1])
+    with pytest.raises(TypeError):
+        dequant(t[1].words, t[1].scales, spec, 96, 40, torch.float16)
 
 
 def test_pack_tensor_blocks_equal_jax():
@@ -432,6 +457,17 @@ def test_dequant_kernel_bitwise_on_card(cuda, name, group):
     got = tops.dequant(t)
     assert dequant.launches == before + 1
     assert torch.equal(got, dequant_plain(t.words, t.scales, spec, 896, 4864))
+
+
+@pytest.mark.parametrize("name", PACKABLE)
+@pytest.mark.parametrize("group", [None, 32])
+def test_dequant_kernel_bf16_bitwise_on_card(cuda, name, group):
+    spec = tfmt.FORMATS[name]
+    t = tops.pack_tensor(spec, torch.from_numpy(_weight((2, 896, 4864), 9))
+                         .to(cuda), group_size=group)[1]
+    got = tops.dequant(t, torch.bfloat16)
+    want = dequant_plain(t.words, t.scales, spec, 896, 4864, torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 def test_quire_kernel_bitwise_on_card(cuda):

@@ -4,6 +4,9 @@ attention (the flash-decode wrapper's plain version on the CPU) agrees
 with the Pallas kernel in interpret mode, the naive oracle and the
 reference's blocked XLA loop."""
 
+import os
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +18,10 @@ from repro.models import attention as jA
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.models import attention as tA
+
+sys.path.insert(0, os.path.dirname(__file__))
+
+from _torch_bridge import one_torch_thread  # noqa: E402,F401
 
 # as tests/test_flash_decode.py: f32 online softmax in another order
 RTOL = ATOL = 1e-5

@@ -14,7 +14,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 
-from _torch_bridge import jax_to_numpy  # noqa: E402
+from _torch_bridge import jax_to_numpy, one_torch_thread  # noqa: E402,F401
 from repro.core import formats as jfmt  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402

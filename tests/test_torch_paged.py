@@ -6,6 +6,8 @@ bitwise invariants inside the port; and the pool's bookkeeping and byte
 models against ``repro.serve.paged_kv``."""
 
 import dataclasses
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,10 @@ from repro_torch.kernels.flash_decode import (_check_kernel_shape,
                                               paged_flash_prefill_plain)
 from repro_torch.models import attention as tA
 from repro_torch.serve import paged_kv as tpk
+
+sys.path.insert(0, os.path.dirname(__file__))
+
+from _torch_bridge import one_torch_thread  # noqa: E402,F401
 
 # as tests/test_paged_kv.py: f32 online softmax in another order
 RTOL = ATOL = 1e-5
@@ -236,8 +242,8 @@ def test_pool_layout_matches_reference():
         assert str(got.dtype).split(".")[-1] == str(want.dtype), key
         assert float(got.float().abs().max()) == float(np.abs(want).max())
     assert tpk.PARKING_PAGE == jpk.PARKING_PAGE == 0
-    with pytest.raises(ValueError, match="dense"):
-        tpk.PagedKVPool(dataclasses.replace(TCFG, family="ssm"), 4, 8,
+    with pytest.raises(ValueError, match="no page-kind mapping"):
+        tpk.PagedKVPool(dataclasses.replace(TCFG, family="audio"), 4, 8,
                         device="cpu")
 
 

@@ -6,12 +6,17 @@ against ``csrc/rmmec_matmul.cu``."""
 
 import os
 import re
+import sys
 
 import pytest
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import rmmec_matmul as rm
+
+sys.path.insert(0, os.path.dirname(__file__))
+
+from _torch_bridge import one_torch_thread  # noqa: E402,F401
 
 QWEN2_SHAPES = {"q/o": (896, 896), "k/v": (896, 128),
                 "gate/up": (896, 4864), "down": (4864, 896)}

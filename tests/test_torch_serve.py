@@ -16,7 +16,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 
-from _torch_bridge import jax_to_numpy  # noqa: E402
+from _torch_bridge import jax_to_numpy, one_torch_thread  # noqa: E402,F401
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.core.policy import PrecisionPolicy as JaxPolicy  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402

@@ -31,7 +31,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 
-from _torch_bridge import jax_to_numpy  # noqa: E402
+from _torch_bridge import jax_to_numpy, one_torch_thread  # noqa: E402,F401
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.core.policy import PrecisionPolicy as JaxPolicy  # noqa: E402
 from repro.models import attention as jA  # noqa: E402
@@ -139,6 +139,37 @@ def test_sub_page_is_the_largest_divisor_that_fits(page, dh, sub):
     cap = fd.MAX_SUB if fd.kernel_width(dh) <= 128 else fd.MAX_SUB_WIDE
     assert page % got == 0 and got <= cap
     assert not any(page % d == 0 for d in range(got + 1, cap + 1))
+
+
+def test_prefill_smem_model_matches_the_cuda_source():
+    """The Python model that sizes sub-pages is ``smem_bytes`` of the .cu
+    (this file's own term-for-term copy) over pages, heads and groups."""
+    assert (fd.LUT_BYTES, fd.ROWS, fd.TEAM_WARPS) == (
+        _const(FLASH, "LUT_BYTES"), _const(FLASH, "ROWS"),
+        _const(FLASH, "TEAM") // 32)
+    assert fd.SMEM_LIMIT == SMEM_LIMIT
+    for sub in (1, 7, 64, 128):
+        for kh, gs in ((1, 1), (2, 8), (8, 1), (8, 16), (16, 32)):
+            for w in fd.KERNEL_WIDTHS:
+                assert fd.prefill_smem_bytes(sub, kh, gs, w) == _smem_bytes(
+                    sub, kh, gs, w, 2, _prefill_teams(w))
+
+
+@pytest.mark.parametrize("page,dh,kh,gs,sub", [
+    (128, 128, 8, 1, 128), (128, 128, 8, 16, 64), (128, 64, 8, 8, 128),
+    (256, 128, 8, 16, 64), (128, 256, 8, 32, 32), (96, 128, 16, 16, 48)])
+def test_sub_page_fits_the_scales_of_every_head(page, dh, kh, gs, sub):
+    """Many kv heads with small scale groups (jamba-v0.1's Kh = 8 at
+    Dh = 128 with group 8: 16 scales a slot) stage more scale bytes than
+    a 128-slot sub-page leaves room for: the page walks as the largest
+    divisor whose prefill block fits."""
+    got = fd.sub_page(page, dh, kh, gs)
+    assert got == sub and page % got == 0
+    w = fd.kernel_width(dh)
+    assert fd.prefill_smem_bytes(got, kh, gs, w) <= fd.SMEM_LIMIT
+    cap = fd.MAX_SUB if w <= 128 else fd.MAX_SUB_WIDE
+    assert not any(page % d == 0 and fd.prefill_smem_bytes(d, kh, gs, w)
+                   <= fd.SMEM_LIMIT for d in range(got + 1, cap + 1))
 
 
 @pytest.mark.parametrize("dh,width", [(1, 32), (32, 32), (40, 64), (48, 64),
