@@ -116,7 +116,28 @@ and, for the paper's accuracy plane:
       the CPU: five AdamW steps of each perception model from one init
       (losses within 1e-4 relative), and ``quantize_tree`` bitwise equal
       on both devices under every policy of the sweep, with the quantized
-      models' metrics within 1e-5.
+      models' metrics within 1e-5;
+
+and, for LM training:
+
+  7.  the reference's quickstart at qwen2-0.5b's full width (24 layers,
+      d=896, vocab 151936, remat "full"; seeded weights on the card;
+      ``TokenStream`` seed 0, batch 16 x 256 over the reference
+      quickstart's 512 ids): one calibration gradient,
+      the layer-adaptive policy (at most 6.0 bits per quantized weight,
+      scale groups of 32 so QAT and the packed plane share one grid), 20
+      QAT steps (lr 3e-3, warmup 5, microbatch 2, posit8 moments, posit8
+      gradient compression; every loss finite, the last below the first
+      by 0.5) with ms per step, peak memory and one step profiled; an
+      async checkpoint after step 10 restored bitwise into a fresh state,
+      the data iterator resumed bitwise, steps 11-20 rerun within 1e-3 of
+      the first run's losses; the trained tree packed (each packed leaf
+      bitwise its fake-quantized leaf) and served (batch 2, prompt 8, 8
+      greedy steps, posit8 KV) with exact ``rmmec_matmul`` /
+      ``flash_decode`` launch counts; then three steps of the same step
+      on the reduced float32 config on the card and on the CPU (losses
+      within 1e-4 with f32 moments, 1e-3 with posit8 moments and
+      compression).
 
 The last lines are the card's name and power limit, one JSON line with
 each kernel's launches, error and times, and ``{"ok": true, ...}``.
@@ -2379,6 +2400,281 @@ def phase_engine_plane(summary, fails) -> None:
     summary["rmmec_matmul"]["launches_engine_plane"] = launches["rmmec_matmul"]
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the quickstart at full width -- calibration gradient, adaptive
+# policy, QAT steps, checkpoint and resume, pack, serve
+# ---------------------------------------------------------------------------
+
+TRAIN_REL = 1e-3   # resumed vs uninterrupted losses (atomics in the
+                   # embedding backward); card vs CPU with posit8 moments
+                   # and compression (a value at a rounding boundary)
+KV_GROUP = 32      # one scale grid for QAT and the packed plane
+
+
+def _to_dev(tree, device):
+    if tree is None or not isinstance(tree, (dict, torch.Tensor)):
+        return tree
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def quickstart(fails, cfg, device="cuda", seq=256, batch=16, steps=20,
+               save_at=10, ckpt_dir=None, profile_at=None, data_vocab=None):
+    """``examples/quickstart.py`` on the port: one calibration gradient ->
+    the layer-adaptive policy (6.0 bits, scale groups of ``KV_GROUP``) ->
+    ``steps`` QAT steps (lr 3e-3, warmup 5, microbatch 2, posit8 AdamW
+    moments, posit8 gradient compression) with an async checkpoint after
+    step ``save_at``, restored into a fresh state and rerun to the end ->
+    the trained tree packed (each leaf == its fake-quant bitwise) ->
+    ``ServeEngine.generate`` with a posit8 KV cache, batch 2, prompt 8, 8
+    greedy steps.  ``data_vocab``: the token stream's vocab (None: the
+    model's).  Appends a message to ``fails`` for each miss; returns the
+    measured numbers."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.policy import flatten_with_paths
+    from repro_torch.core.sensitivity import assign_layer_adaptive
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.ops import PackedTensor, to_dense
+    from repro_torch.models import zoo
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.loop import build_train_step, grads_of, init_state
+
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    out = {}
+    ckpt_dir = ckpt_dir or os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    run = RunConfig(arch=cfg.name, steps=steps, lr=3e-3, warmup_steps=5,
+                    microbatch=2, qat=True, precision_policy="adaptive",
+                    grad_compression="posit8", opt_state_dtype="posit8",
+                    checkpoint_every=0)
+    stream = dict(vocab=data_vocab or cfg.vocab, seq_len=seq,
+                  global_batch=batch, seed=0, device=device)
+    t0 = time.perf_counter()
+    state = init_state(cfg, run, torch.Generator(device).manual_seed(0))
+    grads, loss0, _, _ = grads_of(state.params,
+                                  TokenStream(**stream).next_batch(), cfg)
+    policy = assign_layer_adaptive(state.params, grads,
+                                   target_avg_bits=run.target_avg_bits)
+    policy.group_size = KV_GROUP
+    del grads
+    # the target holds for the weights the policy quantizes; the tree's
+    # average also counts the leaves kept in f32 (the embedding above all)
+    formats, n_q, bits_q = {}, 0, 0
+    for path, leaf in flatten_with_paths(state.params):
+        spec = policy.format_for(path)
+        formats[spec.name] = formats.get(spec.name, 0) + 1
+        if spec.kind != "native":
+            n_q += leaf.numel()
+            bits_q += leaf.numel() * spec.bits
+    out["avg_bits"] = bits_q / max(n_q, 1)
+    out["avg_bits_all"] = policy.average_bits(state.params)
+    out["packed_bytes"] = policy.model_bytes(state.params)
+    sync()
+    log(f"[train] {cfg.name}: calibration loss {float(loss0):.4f}; adaptive "
+        f"policy {out['avg_bits']:.3f} bits per quantized weight (target "
+        f"{run.target_avg_bits}; {out['avg_bits_all']:.3f} over the whole "
+        f"tree with its f32 leaves), packed {out['packed_bytes'] / 1e6:.2f} "
+        f"MB, leaves per format {formats}; init + calibration "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not out["avg_bits"] <= run.target_avg_bits:
+        fails.append(f"train: adaptive policy {out['avg_bits']} bits > "
+                     f"{run.target_avg_bits}")
+
+    step = build_train_step(cfg, run, policy)
+    data = TokenStream(**stream)
+    mgr = CheckpointManager(ckpt_dir, keep=2, async_save=True)
+    losses, step_ms, batches = [], [], []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(1, steps + 1):
+        b = data.next_batch()
+        batches.append(b)
+        sync()
+        t1 = time.perf_counter()
+        if i == profile_at:
+            box = {}
+            wall, dev, _ = _profile(lambda: box.update(r=step(state, b)))
+            state, m = box["r"]
+            out["profile"] = (wall, dev)
+        else:
+            state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if i == save_at:
+            saved = state
+            mgr.save(i, state, {"data": data.state_dict()})
+    out["losses"], out["step_ms"] = losses, step_ms
+    timed = [ms for i, ms in enumerate(step_ms[1:], 2) if i != profile_at]
+    out["ms_per_step"] = float(np.median(timed))
+    if cuda:
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train] {steps} QAT steps (batch {batch} x {seq}, microbatch 2): "
+        f"losses {[round(x, 4) for x in losses]}; median "
+        f"{out['ms_per_step']:.1f} ms/step (first {step_ms[0]:.1f} ms), "
+        f"peak memory {out.get('peak_gib', float('nan')):.2f} GiB")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0] - 0.5):
+        fails.append(f"train: losses {losses[0]} -> {losses[-1]} (finite, "
+                     f"a drop of 0.5 wanted)")
+
+    # checkpoint: restore into a fresh state, resume the data, rerun
+    mgr.wait()
+    fresh = init_state(cfg, run, torch.Generator(device).manual_seed(1))
+    restored, extra, at = mgr.restore(fresh)
+    del fresh
+    got, want = flatten_with_paths(restored), flatten_with_paths(saved)
+    same = [p for p, _ in got] == [p for p, _ in want] and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for (_, a), (_, b) in zip(got, want))
+    del saved, got, want
+    data2 = TokenStream(**stream)
+    data2.load_state_dict(extra["data"])
+    nb = data2.next_batch()
+    same_batch = data2.step == save_at + 1 and all(
+        torch.equal(nb[k], batches[save_at][k]) for k in nb)
+    data2.load_state_dict(extra["data"])
+    state2, resumed = restored, []
+    for _ in range(save_at, steps):
+        state2, m = step(state2, data2.next_batch())
+        resumed.append(float(m["loss"]))
+    del state2, restored
+    ref = np.array(losses[save_at:])
+    rel = float(np.max(np.abs(np.array(resumed) - ref) / np.abs(ref)))
+    out["resume_rel"], out["resume_bitwise"] = rel, resumed == list(ref)
+    log(f"[train] async checkpoint at step {at} restored into a fresh state "
+        f"bitwise: {same}; data resumed at step {extra['data']['step']}, next "
+        f"batch bitwise: {same_batch}; steps {save_at + 1}-{steps} rerun: "
+        f"losses {[round(x, 4) for x in resumed]}, max rel diff {rel:.3e} "
+        f"(tol {TRAIN_REL}; bitwise: {out['resume_bitwise']}; "
+        f"deterministic algorithms off)")
+    if not same:
+        fails.append("train: restored checkpoint differs from the saved state")
+    if not same_batch:
+        fails.append("train: data iterator did not resume bitwise")
+    if not rel <= TRAIN_REL:
+        fails.append(f"train: resumed losses differ by {rel:.3e}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # pack: the serving plane == the QAT plane, leaf for leaf
+    with torch.no_grad():
+        fake = dict(flatten_with_paths(
+            zoo.quantize_params_fake(state.params, policy)))
+        packed = zoo.pack_params(state.params, policy)
+        n_packed, bad = 0, []
+        for path, node in flatten_with_paths(packed, keep_packed=True):
+            if isinstance(node, PackedTensor):
+                n_packed += 1
+                if not torch.equal(to_dense(node, torch.float32),
+                                   fake[path]):
+                    bad.append(path)
+    del fake, packed
+    out["n_packed"] = n_packed
+    log(f"[train] pack: {n_packed} packed leaves, to_dense == "
+        f"quantize_params_fake bitwise for {n_packed - len(bad)}")
+    if bad or not n_packed:
+        fails.append(f"train: packed leaves differ from fake-quant: {bad}")
+
+    # serve the trained tree
+    eng = ServeEngine(cfg, state.params, max_len=32, quantized_kv=True,
+                      policy=policy, device=device)
+    prompt = batches[0]["tokens"][:2, :8].cpu().numpy()
+    new = 8
+    if cuda:
+        toks, wall, launches = _counted(lambda: eng.generate(prompt, new))
+        rm, _ = _per_forward(eng.params, cfg)
+        want_l = {"rmmec_matmul": rm * (1 + new),
+                  "flash_decode": cfg.n_layers * new}
+        got_l = {k: launches[k] for k in want_l}
+        out["launches"] = got_l
+        log(f"[train] served {toks.shape} in {wall * 1e3:.1f} ms: "
+            f"{toks[:, 8:].tolist()}; launches {got_l}, expected {want_l}")
+        if got_l != want_l:
+            fails.append(f"train: serve launches {got_l}, expected {want_l}")
+    else:
+        toks = eng.generate(prompt, new)
+    if toks.shape != (2, 8 + new) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab:
+        fails.append(f"train: bad served tokens {toks.shape}")
+    return out
+
+
+def phase_train(summary, fails) -> None:
+    """Phase 7: the quickstart at qwen2-0.5b's full width on the card
+    (``quickstart``, one step profiled), then three steps of the
+    all-features train step on the reduced float32 config on the card and
+    on the CPU from the same weights and batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.train.loop import TrainState, build_train_step, init_state
+    cfg = get_config("qwen2-0.5b")
+    # the reference quickstart's token stream (the reduced config's 512
+    # ids, drawn as ids of the full vocab): over all 151936 ids a band of
+    # 2374 next tokens is not learnable in 20 steps (on an H100 the loss
+    # went 12.10 -> 12.22 over them), so the 0.5 bar would test the data,
+    # not the port
+    data_vocab = cfg.reduced().vocab
+    torch.cuda.empty_cache()       # the earlier phases' cached blocks
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}, vocab "
+        f"{cfg.vocab}, remat {cfg.remat!r}; token stream over ids "
+        f"0..{data_vocab - 1}")
+    out = quickstart(fails, cfg, profile_at=4, data_vocab=data_vocab)
+    if "profile" in out:
+        wall, dev = out["profile"]
+        busy = sum(v[0] for v in dev.values())
+        n = sum(v[1] for v in dev.values())
+        log(f"[train] profiled step 4: wall {wall:.1f} ms, device busy "
+            f"{busy:.1f} ms, busy share {busy / wall:.3f}, kernel launches "
+            f"{n}")
+        for k, (ms, calls) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:10]:
+            log(f"[train]   device {ms:8.3f} ms  {calls:6d} calls  {k[:90]}")
+        out["busy_ms"], out["launches_per_step"] = busy, n
+    for name in ("rmmec_matmul", "flash_decode"):
+        summary[name]["launches_quickstart"] = out.get("launches", {}).get(name)
+    out.pop("profile", None)
+    log("[train] summary " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("losses", "step_ms")}))
+
+    small = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                                dtype="float32")
+    for kw, tol in ((dict(), ACC_REL),
+                    (dict(opt_state_dtype="posit8",
+                          grad_compression="posit8"), TRAIN_REL)):
+        run = RunConfig(arch=small.name, steps=3, lr=3e-3, warmup_steps=1,
+                        microbatch=2, qat=True, precision_policy="mixed",
+                        checkpoint_every=0, **kw)
+        base = init_state(small, run, torch.Generator("cpu").manual_seed(0))
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            st = TrainState(*(_to_dev(getattr(base, f.name), dev)
+                              for f in dataclasses.fields(base)))
+            step = build_train_step(small, run)
+            data = TokenStream(vocab=small.vocab, seq_len=64, global_batch=8,
+                               device=dev)
+            ls = []
+            for _ in range(3):
+                st, m = step(st, data.next_batch())
+                ls.append(float(m["loss"]))
+            losses[dev] = np.array(ls)
+        rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"])
+                           / np.abs(losses["cpu"])))
+        log(f"[train] card vs CPU, reduced float32, mixed QAT, microbatch "
+            f"2, moments {run.opt_state_dtype}, compression "
+            f"{run.grad_compression}: losses cuda {losses['cuda'].tolist()} "
+            f"cpu {losses['cpu'].tolist()}, max rel diff {rel:.3e} (tol {tol})")
+        if not rel <= tol:
+            fails.append(f"train: card vs CPU losses differ by {rel:.3e} "
+                         f"({run.opt_state_dtype}, {run.grad_compression})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -2429,8 +2725,11 @@ def main() -> int:
     log(f"[time] engine plane {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_accuracy(fails)
-    log(f"[time] accuracy plane {time.perf_counter() - t0:.1f} s; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+    log(f"[time] accuracy plane {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_train(summary, fails)
+    log(f"[time] quickstart at full width (7) {time.perf_counter() - t0:.1f} "
+        f"s; total {time.perf_counter() - t_start:.1f} s")
     if fails:
         for f in fails:
             print(f"FAIL {f}", file=sys.stderr)

@@ -2,7 +2,8 @@
 
 The port keeps its own copy so that it imports nothing of the JAX
 package; the field names and defaults are the reference's, so a config
-built on either side describes the same model.  ``reduced()`` derives
+built on either side describes the same model (``RunConfig``: the same
+run).  ``reduced()`` derives
 the CPU-test variant (same family and wiring, tiny dims).
 """
 
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "RunConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,3 +102,28 @@ class ModelConfig:
             ssm_chunk=8,
             remat="none",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Training/serving run knobs consumed by the launcher."""
+    arch: str = "qwen2-0.5b"
+    shape: str = "train_4k"
+    steps: int = 100
+    microbatch: int = 0            # 0 -> no gradient accumulation
+    lr: float = 3e-4
+    warmup_steps: int = 20
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    seed: int = 0
+    # paper technique
+    qat: bool = False
+    precision_policy: str = "fp32"   # fp32|fp4|posit8_0|mixed|adaptive
+    target_avg_bits: float = 6.0
+    # distributed tricks
+    grad_compression: str = "none"   # none | posit8
+    opt_state_dtype: str = "float32" # float32 | bfloat16 | posit8 (8-bit Adam)
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
+    quantize_kv: bool = False        # posit8 KV cache (serving)

@@ -17,12 +17,15 @@ import numpy as np
 from . import formats as fmt
 from .formats import FormatSpec
 
-__all__ = ["PrecisionPolicy", "flatten_with_paths"]
+__all__ = ["PrecisionPolicy", "flatten_with_paths", "tree_from_paths"]
 
 
-def flatten_with_paths(tree) -> List[Tuple[str, object]]:
-    """Flatten a nested dict/list tree to (slash-path, leaf).  A packed
-    tensor flattens into its words/scales/mask sub-leaves."""
+def flatten_with_paths(tree, keep_packed: bool = False
+                       ) -> List[Tuple[str, object]]:
+    """Flatten a nested dict/list tree to (slash-path, leaf), dict keys
+    sorted.  A packed tensor flattens into its words/scales/mask
+    sub-leaves, unless ``keep_packed`` (then it is one leaf); any other
+    dataclass (a ``TrainState``) flattens as the dict of its fields."""
     leaves = []
 
     def rec(node, path):
@@ -35,13 +38,32 @@ def flatten_with_paths(tree) -> List[Tuple[str, object]]:
         elif node is None:
             return
         elif hasattr(node, "words") and hasattr(node, "scales"):
-            rec({"words": node.words, "scales": node.scales,
-                 "mask": node.mask}, path)
+            if keep_packed:
+                leaves.append((path, node))
+            else:
+                rec({"words": node.words, "scales": node.scales,
+                     "mask": node.mask}, path)
+        elif dataclasses.is_dataclass(node) and not isinstance(node, type):
+            rec({f.name: getattr(node, f.name)
+                 for f in dataclasses.fields(node)}, path)
         else:
             leaves.append((path, node))
 
     rec(tree, "")
     return leaves
+
+
+def tree_from_paths(template, leaves):
+    """A nested dict of ``template``'s structure whose leaf at each
+    ``flatten_with_paths`` path is ``leaves[path]`` (None stays None)."""
+
+    def rec(node, path):
+        if isinstance(node, dict):
+            return {k: rec(v, f"{path}/{k}" if path else str(k))
+                    for k, v in node.items()}
+        return None if node is None else leaves[path]
+
+    return rec(template, "")
 
 
 @dataclasses.dataclass

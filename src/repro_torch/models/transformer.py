@@ -17,6 +17,11 @@ cache's page table and positions go to every attention layer as they
 are.  Decode updates the cache in place: attention writes its token's
 KV, and recurrent layers copy their new (possibly posit8) state into the
 stacked leaves.  Frontends and M-RoPE raise.
+
+``lm_apply(mode="train")`` is the differentiable forward of ``lm_loss``
+(dense and MoE families): it builds no cache, fake-quantizes one layer's
+weights at a time under a QAT policy, and recomputes each layer in the
+backward per ``cfg.remat``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 
 from .. import resolve_device
 from ..core.formats import torch_dtype
+from ..core.qat import quantize_tree
 from ..kernels.ops import PackedTensor
 from . import attention as A
 from . import layers as L
@@ -34,7 +40,7 @@ from . import moe as M
 from . import ssm as S
 
 __all__ = ["lm_init", "lm_apply", "lm_decode", "init_cache",
-           "init_state_cache"]
+           "init_state_cache", "lm_loss"]
 
 _FAMILY_MIXER = {"dense": "attn", "moe": "attn", "ssm": "rwkv",
                  "hybrid": "group"}
@@ -97,7 +103,8 @@ def _block_apply(p, x, cfg, mixer: str, use_moe: bool, positions,
                                             cache)
         else:
             h, (k, v) = A.attn_apply(p["attn"], h, cfg, positions, kv_mask)
-            cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+            cache = None if mode == "train" else \
+                {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
     elif mixer == "mamba":
         if cache is not None and "h_codes" in cache:
             state_q, cache = cache, S.dequantize_state(cache)
@@ -270,10 +277,17 @@ def _layers_of(p, cfg):
 
 
 def lm_apply(p, batch, cfg, last_only: bool = False, mode: str = "prefill",
-             cache=None, with_aux: bool = False):
+             cache=None, with_aux: bool = False, policy=None):
     """Full-sequence forward.  Returns (logits, cache), or (logits, cache,
     aux) with ``with_aux`` (the MoE load-balance loss summed over layers).
 
+    ``mode="train"``: the differentiable forward of :func:`lm_loss`; it
+    builds no cache (``cache`` comes back None).  With a ``policy`` (QAT)
+    ``embed`` / ``lm_head`` / ``final_norm`` are fake-quantized first and
+    each layer's weights inside the layer loop, so one layer's quantized
+    copy is live at a time; ``cfg.remat`` recomputes each layer in the
+    backward (``"full"``), all but its 2-D matmul outputs (``"dots"``), or
+    nothing (``"none"``).  Dense and MoE families only.
     ``mode="prefill"``: from an empty cache; attention layers return their
     kv ``{"k", "v"}`` (bf16, stacked (L, B, S, Kh, Dh)) and recurrent
     layers their final f32 state.  ``mode="prefill_chunk"``: one chunk at
@@ -286,8 +300,15 @@ def lm_apply(p, batch, cfg, last_only: bool = False, mode: str = "prefill",
     ``batch``: ``tokens`` (B, S), optional ``positions`` (B, S) and
     ``kv_mask`` (B, S) bool for left-padded ragged batches."""
     _check_family(cfg)
+    if mode == "train":
+        logits, aux = _train_forward(p, batch, cfg, policy)
+        return (logits, None, aux) if with_aux else (logits, None)
     if mode not in ("prefill", "prefill_chunk"):
-        raise ValueError(f"lm_apply mode {mode!r}: prefill or prefill_chunk")
+        raise ValueError(f"lm_apply mode {mode!r}: train, prefill or "
+                         f"prefill_chunk")
+    if policy is not None:
+        raise ValueError("a QAT policy applies to mode='train' only; "
+                         "serving packs the weights (zoo.pack_params)")
     x = L.embed(p["embed"], batch["tokens"], torch_dtype(cfg.dtype))
     positions = batch.get("positions")
     kv_mask = batch.get("kv_mask")
@@ -312,6 +333,68 @@ def lm_apply(p, batch, cfg, last_only: bool = False, mode: str = "prefill",
         return logits, out_cache
     return logits, out_cache, torch.as_tensor(aux, dtype=torch.float32,
                                               device=x.device)
+
+
+# 2-D products (a dense weight times activations): what ``remat="dots"``
+# keeps, the counterpart of ``checkpoint_dots_with_no_batch_dims``
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _remat(fn, cfg):
+    """``fn`` under ``cfg.remat``: ``"none"`` as it is; ``"full"`` its
+    activations recomputed in the backward; ``"dots"`` the same but the
+    outputs of its 2-D matmuls kept."""
+    if cfg.remat == "none":
+        return fn
+    from torch.utils import checkpoint as C
+    if cfg.remat == "dots":
+        def ctx():
+            return C.create_selective_checkpoint_contexts(list(_DOT_OPS))
+        return lambda *a: C.checkpoint(fn, *a, use_reentrant=False,
+                                       context_fn=ctx)
+    if cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r}: none, full or dots")
+    return lambda *a: C.checkpoint(fn, *a, use_reentrant=False)
+
+
+def _unstack(tree, n: int):
+    """A stacked tree -> ``n`` per-layer trees, each leaf cut once with
+    ``unbind`` (its backward stacks the layers' grads in one copy)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
+def _train_forward(p, batch, cfg, policy):
+    """(logits (B, S, V), aux) of the differentiable forward."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"training {cfg.name} (family {cfg.family!r}) needs the Mamba / "
+            f"RWKV scans in a differentiable chunked form; the port trains "
+            f"the dense and MoE families so far (ROADMAP Queue 1 item 6b)")
+    if policy is not None:
+        p = dict(p)
+        for k in ("embed", "lm_head", "final_norm"):
+            if k in p:
+                p[k] = quantize_tree(p[k], policy, k)
+    x = L.embed(p["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+    positions = batch.get("positions")
+    kv_mask = batch.get("kv_mask")
+    use_moe = cfg.family == "moe"
+
+    def layer(lp, x):
+        lp = quantize_tree(lp, policy, "layers")
+        x, _, a = _block_apply(lp, x, cfg, "attn", use_moe, positions,
+                               mode="train", kv_mask=kv_mask)
+        return x, torch.as_tensor(a, dtype=torch.float32, device=x.device)
+
+    layer = _remat(layer, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in _unstack(p["layers"], _n_layers(p["layers"])):
+        x, a = layer(lp, x)
+        aux = aux + a
+    return _readout(p, x), aux
 
 
 def lm_decode(p, tokens, cfg, cache, pos: int, pad=None):
@@ -396,3 +479,21 @@ def init_state_cache(cfg, batch: int, device=None):
                 for i, (m, _) in enumerate(_group_layout(cfg))
                 if m != "attn"}
     return None
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(p, batch, cfg, aux_weight: float = 0.01, policy=None):
+    """Next-token cross-entropy over the labels >= 0 (log-softmax in f32)
+    plus ``aux_weight`` times the MoE load-balance loss.  Returns
+    ``(loss, (ce, aux))``, differentiable in ``p``."""
+    logits, _, aux = lm_apply(p, batch, cfg, mode="train", with_aux=True,
+                              policy=policy)
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return ce + aux_weight * aux, (ce, aux)

@@ -1,24 +1,40 @@
-"""Model facade and the serving plane's packing (the counterpart of
-``repro.models.zoo``, serving path)."""
+"""Model facade and the two precision planes (the counterpart of
+``repro.models.zoo``).
+
+  * QAT plane -- ``quantize_params_fake`` fake-quantizes the f32 master
+    tree per the ``PrecisionPolicy`` (the forward sees low-bit values,
+    gradients flow through the STE); ``loss_fn`` threads the policy into
+    the layer loop instead, one layer at a time;
+  * serving plane -- ``pack_params`` packs the weight matrices to
+    low-bit codes (``PackedTensor`` leaves) that the kernels stream.
+
+With ``policy.group_size`` set both planes grid alike, so a packed
+leaf's ``to_dense`` is bitwise ``quantize_params_fake`` of the leaf.
+"""
 
 from __future__ import annotations
 
 from typing import Optional
 
-from ..core.policy import PrecisionPolicy
+import numpy as np
+
+from ..core.policy import PrecisionPolicy, flatten_with_paths
+from ..core.qat import quantize_tree
 from ..kernels.ops import pack_tensor
 from . import attention as A
 from . import ssm as S
 from . import transformer as T
 
 __all__ = ["init_model", "apply_model", "decode_model", "init_cache",
-           "init_state_cache", "pack_params", "quantize_cache"]
+           "init_state_cache", "loss_fn", "quantize_params_fake",
+           "pack_params", "packed_bytes", "param_count", "quantize_cache"]
 
 init_model = T.lm_init
 apply_model = T.lm_apply
 decode_model = T.lm_decode
 init_cache = T.init_cache
 init_state_cache = T.init_state_cache
+loss_fn = T.lm_loss
 
 _PACKABLE_SUFFIXES = ("/w", "experts/gate", "experts/up", "experts/down")
 
@@ -44,6 +60,21 @@ def pack_params(params, policy: PrecisionPolicy, prefix: str = ""):
         return pack_tensor(spec, node, group_size=policy.group_for(path))
 
     return rec(params, prefix)
+
+
+def quantize_params_fake(params, policy: PrecisionPolicy):
+    """QAT plane: every matrix leaf fake-quantized per ``policy`` (a
+    stacked leaf whole, with its scale groups)."""
+    return quantize_tree(params, policy)
+
+
+def packed_bytes(params, policy: PrecisionPolicy) -> int:
+    return policy.model_bytes(params)
+
+
+def param_count(params) -> int:
+    return sum(int(np.prod(tuple(leaf.shape)))
+               for _, leaf in flatten_with_paths(params))
 
 
 def quantize_cache(cache, kv_group: Optional[int] = None,

@@ -51,7 +51,10 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.core.qat, repro_torch.core.sensitivity, "
             "repro_torch.optim, repro_torch.data.vio_data, "
             "repro_torch.models.perception, repro_torch.models.ssm, "
-            "repro_torch.models.moe, repro_torch.models.transformer\n"
+            "repro_torch.models.moe, repro_torch.models.transformer, "
+            "repro_torch.train.loop, repro_torch.checkpoint, "
+            "repro_torch.data.tokens, repro_torch.parallel.collectives, "
+            "repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))")
