@@ -137,7 +137,34 @@ and, for LM training:
       ``flash_decode`` launch counts; then three steps of the same step
       on the reduced float32 config on the card and on the CPU (losses
       within 1e-4 with f32 moments, 1e-3 with posit8 moments and
-      compression).
+      compression);
+
+and, for the other five architectures (weights drawn and packed layer by
+layer on the card, ``paper_mixed``, posit8 KV):
+
+  2b. more shapes: the decode entry point against its plain version and
+      the naive oracle at the heads of qwen2-vl-7b (Kh 4, G 7, Dh 128),
+      musicgen-medium (24, 1, 64), deepseek-67b (8, 8, 128) and
+      command-r-plus-104b (8, 12, 128), each timed beside SDPA and the
+      bytes bound; ``dequant`` of musicgen's posit16 1536 x 2048 read-out
+      to bf16, bitwise;
+  3f. gemma-2b at full size (18 layers, d 2048, MQA at Dh 256, GeGLU,
+      vocab 256000 tied): static serving as phase 3, the carry context
+      on its prompts equal to the static tokens, continuous serving on
+      phase 3b's traffic at K=1 and K=4 (tokens equal), exact launch
+      counts, each projection against plain at M = 1, 8, 128;
+  3g. qwen2-vl-7b (vision, M-RoPE) and musicgen-medium (audio) at full
+      width through ``zoo.apply_model`` / ``zoo.decode_model`` (the
+      engines take token prompts only): 32 greedy steps, exact launch
+      counts (musicgen's code embed through ``dequant``), finite logits,
+      each projection and the posit16 read-out against plain at M = 2;
+  3h. deepseek-67b and command-r-plus-104b at full width, depth 2: their
+      widest projections against plain at M = 1, 8, 128, the posit16
+      read-out (up to 12288 x 256000, RMMEC's SIMT route) timed beside
+      its bytes bound, static serving with exact launch counts;
+  4d. the five configs reduced in float32, card against CPU: prefill and
+      4 decode steps' logits within 1e-5 of max|logit|, gemma's
+      continuous tokens equal.
 
 The last lines are the card's name and power limit, one JSON line with
 each kernel's launches, error and times, and ``{"ok": true, ...}``.
@@ -148,6 +175,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import inspect
 import io
 import json
@@ -1290,11 +1318,61 @@ def _launch_counters():
             "dequant": dequant, "quire_dot": quire_dot}
 
 
+def _continuous_run(tag, smi, cfg, params, kw, reqs, k, fails):
+    """One ``ContinuousEngine`` run of ``reqs`` (``_serve_continuous``'s
+    arrivals) on 20 pages at K=``k`` under the sync guard.  Checks the
+    launch counts exactly (7 RMMEC a layer a forward, one paged decode /
+    prefill a layer an iteration / chunk), every output's length and
+    range, and that only the cached prefix pages stay in use after
+    draining.  Returns ({request index: tokens}, stats, launches)."""
+    from repro_torch.obs import TraceRecorder
+    from repro_torch.serve.engine import ContinuousEngine
+    rec = TraceRecorder()
+    eng = ContinuousEngine(cfg, params, n_pages=20, decode_steps=k,
+                           trace=rec, sync_guard=True, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, launches = _counted(lambda: _serve_continuous(eng, reqs))
+    sched = eng.scheduler
+    chunks = rec.count("PREFILL_CHUNK")
+    iters = eng.decode_dispatches * k
+    gen = sum(len(o) - len(p) for o, (p, _) in zip(out.values(), reqs))
+    dec_ms = sum(e["dur"] for n in ("decode_dispatch", "decode_sync")
+                 for e in rec.events(n)) * 1e3
+    pre_ms = sum(e["dur"] for e in rec.events("prefill")) * 1e3
+    st = dict(
+        k=k, wall_s=wall, generated=gen, tok_per_s=gen / wall,
+        dispatches=eng.decode_dispatches, decode_iterations=iters,
+        ms_per_dispatch=dec_ms / max(eng.decode_dispatches, 1),
+        ms_per_decode_iteration=dec_ms / max(iters, 1),
+        prefill_chunks=chunks, ms_per_prefill_chunk=pre_ms / max(chunks, 1),
+        preemptions=sched.preemption_count,
+        preempted=list(sched.preempted_log),   # rid == request index
+        prefix_hits=sched.prefix.hits,
+        prefill_tokens=eng.prefill_tokens_computed,
+        page_table_uploads=eng.page_table_uploads,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[{tag}] {smi}, K={k}: " + json.dumps(st))
+    n_layers = cfg.n_layers
+    _check_launches(f"{tag} K={k}", launches, {
+        "paged_flash_decode": n_layers * iters,
+        "paged_flash_prefill": n_layers * chunks,
+        "rmmec_matmul": 7 * n_layers * (iters + chunks),
+        "flash_decode": 0, "dequant": 0, "quire_dot": 0}, fails)
+    if eng.pool.used_pages != len(sched.prefix.cached_pages):
+        fails.append(f"{tag} K={k}: {eng.pool.used_pages} pages in use "
+                     f"after draining, {len(sched.prefix)} cached")
+    for i, (p, n) in enumerate(reqs):
+        o = out[i]
+        if len(o) != len(p) + n or o.min() < 0 or o.max() >= cfg.vocab:
+            fails.append(f"{tag} K={k}: request {i} output {o.shape} "
+                         f"[{o.min()}, {o.max()}]")
+    return out, st, launches
+
+
 def phase_continuous(summary, fails) -> None:
     from repro_torch.configs import get_config
     from repro_torch.core.policy import PrecisionPolicy
     from repro_torch.models import zoo
-    from repro_torch.obs import TraceRecorder
     from repro_torch.serve.engine import ContinuousEngine, _sync_guard
     from repro_torch.serve.paged_kv import page_handoff_bytes
 
@@ -1328,61 +1406,12 @@ def phase_continuous(summary, fails) -> None:
     counters = _launch_counters()
     outs, stats = {}, {}
     for k in (1, 4):
-        rec = TraceRecorder()
-        eng = ContinuousEngine(cfg, params, n_pages=20, decode_steps=k,
-                               trace=rec, sync_guard=True, **kw)
-        for fn in counters.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        outs[k] = _serve_continuous(eng, reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {n: fn.launches for n, fn in counters.items()}
-        sched = eng.scheduler
-        chunks = rec.count("PREFILL_CHUNK")
-        iters = eng.decode_dispatches * k
-        gen = sum(len(o) - len(p) for o, (p, _) in zip(outs[k].values(), reqs))
-        span = {n: rec.events(n) for n in ("decode_dispatch", "decode_sync",
-                                           "prefill")}
-        dec_ms = sum(e["dur"] for n in ("decode_dispatch", "decode_sync")
-                     for e in span[n]) * 1e3
-        pre_ms = sum(e["dur"] for e in span["prefill"]) * 1e3
-        st = dict(
-            k=k, wall_s=wall, generated=gen, tok_per_s=gen / wall,
-            dispatches=eng.decode_dispatches, decode_iterations=iters,
-            ms_per_dispatch=dec_ms / max(eng.decode_dispatches, 1),
-            ms_per_decode_iteration=dec_ms / max(iters, 1),
-            prefill_chunks=chunks, ms_per_prefill_chunk=pre_ms / max(chunks, 1),
-            preemptions=sched.preemption_count,
-            preempted=list(sched.preempted_log),   # rid == request index
-            prefix_hits=sched.prefix.hits,
-            prefill_tokens=eng.prefill_tokens_computed,
-            page_table_uploads=eng.page_table_uploads,
-            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-        stats[k] = st
-        log(f"[cont] {smi}, K={k}: " + json.dumps(st))
-        n_layers = cfg.n_layers
-        want = {"paged_flash_decode": n_layers * iters,
-                "paged_flash_prefill": n_layers * chunks,
-                "rmmec_matmul": 7 * n_layers * (iters + chunks),
-                "flash_decode": 0, "dequant": 0, "quire_dot": 0}
-        log(f"[cont] K={k} launches {launches}, expected {want}")
-        for name, n in want.items():
-            if launches[name] != n:
-                fails.append(f"continuous K={k}: {name} launched "
-                             f"{launches[name]} times, expected {n}")
-            if n and k == 1:
-                summary[name]["launches_continuous"] = launches[name]
-        if eng.pool.used_pages != len(sched.prefix.cached_pages):
-            fails.append(f"continuous K={k}: {eng.pool.used_pages} pages in "
-                         f"use after draining, {len(sched.prefix)} cached")
-        for i, (p, n) in enumerate(reqs):
-            o = outs[k][i]
-            if len(o) != len(p) + n or o.min() < 0 or o.max() >= cfg.vocab:
-                fails.append(f"continuous K={k}: request {i} output "
-                             f"{o.shape} [{o.min()}, {o.max()}]")
+        outs[k], stats[k], launches = _continuous_run(
+            "cont", smi, cfg, params, kw, reqs, k, fails)
+        if k == 1:
+            for name, n in launches.items():
+                if n:
+                    summary[name]["launches_continuous"] = n
     if stats[1]["preemptions"] < 1 or stats[1]["prefix_hits"] < 1:
         fails.append(f"continuous: K=1 run had {stats[1]['preemptions']} "
                      f"preemptions and {stats[1]['prefix_hits']} prefix hits")
@@ -1679,15 +1708,34 @@ def _leaf_paths(tree, path=""):
     return {path: tree}
 
 
-def _rmmec_path_cases(tag, params, summary, fails) -> None:
+def _col_slabs(t, slab: int = 1 << 15):
+    """(words, scales, columns) of one 2-D packed slice, ``slab`` columns
+    at a time: a read-out of 256000 columns would dequantize to 12.6 GB
+    of f32 at once, and each column's arithmetic is its own."""
+    from repro_torch.core.packing import lanes_per_word
+    per = lanes_per_word(t.spec.bits)
+    n = t.shape[1]
+    for c in range(0, n, slab):
+        yield (t.words[:, c // per:(c + slab) // per].contiguous(),
+               t.scales[:, c:c + slab].contiguous(), min(slab, n - c))
+
+
+def _plain_slabs(x, t) -> torch.Tensor:
+    """``rmmec_matmul_plain`` of one 2-D packed slice, by column slabs."""
+    from repro_torch.kernels.rmmec_matmul import rmmec_matmul_plain
+    return torch.cat([rmmec_matmul_plain(x, w, sc, t.spec, n)
+                      for w, sc, n in _col_slabs(t)], dim=1)
+
+
+def _rmmec_path_cases(tag, params, summary, fails,
+                      ms=(1, 8, 128, 256)) -> None:
     """Every packed projection of ``params`` (not the expert stacks,
     which decode through ``dequant``): its first layer's slice through
-    the kernel against the plain version at M = 1, 8 (decode), 128 (a
-    prefill chunk) and 256 (a whole static prompt), bf16 activations as
-    the path gives them."""
+    the kernel against the plain version at each M of ``ms`` (default: 1,
+    8 (decode), 128 (a prefill chunk) and 256 (a whole static prompt)),
+    bf16 activations as the path gives them."""
     from repro_torch.kernels.ops import PackedTensor
-    from repro_torch.kernels.rmmec_matmul import (launch_plan, rmmec_matmul,
-                                                  rmmec_matmul_plain)
+    from repro_torch.kernels.rmmec_matmul import launch_plan, rmmec_matmul
     gen = torch.Generator("cuda").manual_seed(7)
     seen = set()
     worst = 0.0
@@ -1701,11 +1749,11 @@ def _rmmec_path_cases(tag, params, summary, fails) -> None:
         if key in seen:
             continue
         seen.add(key)
-        for m in (1, 8, 128, 256):
+        for m in ms:
             x = torch.randn((m, k), generator=gen, device="cuda").to(
                 torch.bfloat16)
             got = rmmec_matmul(x, t.words, t.scales, t.mask, t.spec, n)
-            want = rmmec_matmul_plain(x, t.words, t.scales, t.spec, n)
+            want = _plain_slabs(x, t)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             tol = RMMEC_RTOL * want.abs().max().item()
@@ -2675,6 +2723,515 @@ def phase_train(summary, fails) -> None:
                          f"({run.opt_state_dtype}, {run.grad_compression})")
 
 
+# ---------------------------------------------------------------------------
+# the other five architectures (gemma-2b, qwen2-vl-7b,
+# musicgen-medium, deepseek-67b, command-r-plus-104b)
+# ---------------------------------------------------------------------------
+
+# (config, short tag, Kh, G, Dh, B, max_len, last position): each new head
+# shape as phases 3g / 3h decode it -- their batch and cache, the position
+# of their last decode step
+NEW_HEADS = (("qwen2-vl-7b", "qwen2vl", 4, 7, 128, 2, 512, 415),
+             ("musicgen-medium", "musicgen", 24, 1, 64, 2, 384, 287),
+             ("deepseek-67b", "deepseek", 8, 8, 128, 4, 128, 71),
+             ("command-r-plus-104b", "commandr", 8, 12, 128, 4, 128, 71))
+
+
+def phase_new_heads(summary, fails) -> None:
+    """Phase 2b, more shapes: the decode entry point (``flash_decode``)
+    against its plain version and the naive oracle at the head shapes of
+    qwen2-vl-7b (Kh 4, G 7, Dh 128), musicgen-medium (24, 1, 64),
+    deepseek-67b (8, 8, 128) and command-r-plus-104b (8, 12, 128), per
+    channel and group-32 scales, positions from the first slot to the
+    last; each timed at its phase's last step beside SDPA and the bytes
+    bound.  Then ``dequant`` of musicgen's posit16 1536 x 2048 read-out
+    to bf16 (its decode embed), bitwise against the plain version."""
+    from repro_torch.core import formats as fmt
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import (default_kv_block,
+                                                  flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.kernels.ops import pack_tensor
+    from repro_torch.models.attention import dequantize_kv, quantize_kv
+    gen = torch.Generator("cuda").manual_seed(10)
+    s = summary["flash_decode"]
+    for name, short, kh, g, dh, b, t, last in NEW_HEADS:
+        kv = torch.randn((2, b, t, kh, dh), generator=gen, device="cuda")
+        for group in (None, 32):
+            kc, ks = quantize_kv(kv[0], group)
+            vc, vs = quantize_kv(kv[1], group)
+            q = torch.randn((b, kh, g, dh), generator=gen, device="cuda")
+            for pos in (0, 127, last, t - 1):
+                got = flash_decode(q, kc, ks, vc, vs, pos)
+                want = flash_decode_plain(q, kc, ks, vc, vs, pos)
+                naive = ref.flash_decode_ref(q, kc, ks, vc, vs, pos)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                err_n = (got - naive).abs().max().item()
+                ok = err <= FLASH_ATOL and err_n <= FLASH_ATOL \
+                    and torch.isfinite(got).all().item()
+                s["max_abs_err"] = max(s["max_abs_err"], err)
+                tag = (f"{name} Kh={kh} G={g} Dh={dh} B={b} T={t} "
+                       f"blk={default_kv_block(t)} group={group} pos={pos}")
+                log(f"[heads] {tag} max_abs_err={err:.3e} vs plain, "
+                    f"{err_n:.3e} vs naive (tol {FLASH_ATOL}) "
+                    f"{'ok' if ok else 'MISS'}")
+                if not ok:
+                    fails.append(f"flash {tag}")
+            if group is not None:
+                continue
+            ms = time_ms(lambda: flash_decode(q, kc, ks, vc, vs, last))
+            plain = time_ms(lambda: flash_decode_plain(q, kc, ks, vc, vs,
+                                                       last))
+            kd = dequantize_kv(kc[:, : last + 1], ks[:, : last + 1]) \
+                .transpose(1, 2).contiguous()
+            vd = dequantize_kv(vc[:, : last + 1], vs[:, : last + 1]) \
+                .transpose(1, 2).contiguous()
+            qd = q.reshape(b, kh * g, 1, dh).to(torch.bfloat16)
+            lib = time_ms(lambda: torch.nn.functional
+                          .scaled_dot_product_attention(qd, kd, vd,
+                                                        enable_gqa=True))
+            live = last + 1
+            nbytes = (2 * b * live * kh * (dh + 2 * ks.shape[-1])
+                      + q.numel() * 4 + b * kh * g * dh * 4)
+            b_ms, b_by = bound_ms(nbytes, 4.0 * b * kh * g * live * dh,
+                                  PEAK_FLOPS["f32"])
+            log(f"[heads] time {name} Kh={kh} G={g} Dh={dh} B={b} "
+                f"pos={last}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"library (SDPA, bf16, dequantized) {lib:.4f} ms, bound "
+                f"{b_ms:.5f} ms ({b_by})")
+            s.update({f"ms_{short}": ms, f"plain_ms_{short}": plain,
+                      f"library_ms_{short}": lib,
+                      f"bound_ms_{short}": b_ms})
+    w = torch.randn((1536, 2048), generator=gen, device="cuda") * 0.03
+    t = pack_tensor(fmt.POSIT16, w)
+    err = _dequant_case("posit16 musicgen read-out 1536x2048 2-D", t, fails,
+                        torch.bfloat16)
+    ms, plain, b_ms, b_by = _dequant_times(t, torch.bfloat16)
+    log(f"[dequant] time musicgen decode embed posit16 1536x2048 out=bf16: "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}); library: none, {NO_LIBRARY}")
+    summary["dequant"]["max_abs_err"] = max(summary["dequant"]["max_abs_err"],
+                                            err)
+    summary["dequant"].update(ms_musicgen_embed=ms,
+                              plain_ms_musicgen_embed=plain,
+                              bound_ms_musicgen_embed=b_ms)
+
+
+def _n_params(params) -> int:
+    from repro_torch.kernels.ops import PackedTensor
+    return sum(int(np.prod(t.words.shape[:-2])) * t.shape[0] * t.shape[1]
+               if isinstance(t, PackedTensor) else t.numel()
+               for t in _leaf_paths(params).values())
+
+
+def _init_packed(tag, cfg, seed: int = 0):
+    """``cfg``'s seeded weights drawn on the card and packed under
+    ``paper_mixed`` one layer at a time; logs the size, time and peak."""
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models import zoo
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = zoo.init_model(cfg, torch.Generator("cuda").manual_seed(seed),
+                            policy=PrecisionPolicy.paper_mixed())
+    torch.cuda.synchronize()
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff} {cfg.ffn_kind}, vocab {cfg.vocab} "
+        f"({'tied' if cfg.tie_embeddings else 'untied'}), frontend "
+        f"{cfg.frontend}, rope {cfg.rope_kind}: {_n_params(params) / 1e9:.3f}B "
+        f"parameters, paper_mixed; init + pack {time.perf_counter() - t0:.1f}"
+        f" s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, held "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (of it "
+        f"{before:.2f} GiB held before the draw)")
+    return params
+
+
+def _check_launches(tag, launches, expect, fails) -> None:
+    log(f"[{tag}] launches {launches}, expected {expect}")
+    for name, n in expect.items():
+        if launches[name] != n:
+            fails.append(f"{tag}: {name} launched {launches[name]} times, "
+                         f"expected {n}")
+
+
+def _readout_time(tag, params, b, summary) -> None:
+    """The untied posit16 read-out on RMMEC's SIMT route at the decode
+    batch ``b``: kernel, plain and library (bf16 ``torch.matmul`` on a
+    dense copy) times beside the bytes bound."""
+    from repro_torch.kernels.codec import dequant_plain
+    from repro_torch.kernels.rmmec_matmul import launch_plan, rmmec_matmul
+    t = params["lm_head"]["w"]
+    k, n = t.shape
+    x = torch.randn((b, k), device="cuda").to(torch.bfloat16)
+    ms = time_ms(lambda: rmmec_matmul(x, t.words, t.scales, t.mask, t.spec,
+                                      n), iters=10)
+    plain = time_ms(lambda: _plain_slabs(x, t), iters=3, warmup=1)
+    dense = torch.cat([dequant_plain(w, sc, t.spec, k, ns, torch.bfloat16)
+                       for w, sc, ns in _col_slabs(t)], dim=1)
+    lib = time_ms(lambda: torch.matmul(x, dense), iters=10)
+    del dense
+    nbytes = (x.numel() * 2 + t.words.numel() * 4 + t.scales.numel() * 4
+              + t.mask.numel() * 4 + b * n * 4)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * b * k * n, PEAK_FLOPS["f32"])
+    route = launch_plan(b, k, n, x.dtype, t.spec.bits).route
+    log(f"[{tag}] read-out {t.spec.name} K={k} N={n} M={b} route={route}: "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library (bf16 matmul, "
+        f"dense copy) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{nbytes / 1e9:.3f} GB)")
+    summary["rmmec_matmul"].update({
+        f"ms_readout_{tag}": ms, f"plain_ms_readout_{tag}": plain,
+        f"library_ms_readout_{tag}": lib, f"bound_ms_readout_{tag}": b_ms})
+
+
+def phase_gemma(summary, fails) -> None:
+    """Phase 3f: gemma-2b at its full size (arXiv:2403.08295: 18 layers,
+    d 2048, 8 heads / 1 KV head of 256, d_ff 16384 GeGLU, vocab 256000
+    tied; nothing cut), ``paper_mixed``, posit8 KV.  Each packed
+    projection against plain at M = 1, 8, 128; static ``ServeEngine`` as
+    phase 3 (batch 8, prompt 128, 32 steps; RMMEC 126 a forward,
+    ``flash_decode`` 18 a step) with one profiled step; the carry context
+    (``ContinuousEngine``, K=4) on the static prompts equal to the static
+    tokens; ``ContinuousEngine`` on phase 3b's 16-request mix (20 pages
+    of 128, 256-token chunks, prefix cache) at K=1 and 4: tokens equal,
+    a prefix hit, ``paged_flash_decode`` 18 an iteration and
+    ``paged_flash_prefill`` 18 a chunk."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ContinuousEngine, ServeEngine
+    cfg = get_config("gemma-2b")
+    smi = card()
+    params = _init_packed("gemma", cfg)
+    _rmmec_path_cases("gemma", params, summary, fails, ms=(1, 8, 128))
+    per = 7 * cfg.n_layers
+    b, s0, steps = 8, 128, 32
+    eng = ServeEngine(cfg, params, max_len=256, quantized_kv=True)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (b, s0))
+    eng.generate(toks, 2)                        # warm-up
+    _, pre_s, _ = _counted(lambda: eng.generate(toks, 0))
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, launches = _counted(lambda: eng.generate(toks, steps))
+    step_ms = (wall - pre_s) / steps * 1e3
+    log(f"[gemma] {smi}, static B={b} prompt={s0} steps={steps}: prefill "
+        f"{pre_s * 1e3:.1f} ms, decode {step_ms:.2f} ms/step, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _check_launches("gemma static", launches, {
+        "rmmec_matmul": per * (1 + steps),
+        "flash_decode": cfg.n_layers * steps, "paged_flash_decode": 0,
+        "paged_flash_prefill": 0, "dequant": 0, "quire_dot": 0}, fails)
+    for name in ("rmmec_matmul", "flash_decode"):
+        summary[name]["launches_gemma_static"] = launches[name]
+    if out.shape != (b, s0 + steps) or out.min() < 0 \
+            or out.max() >= cfg.vocab:
+        fails.append(f"gemma static: bad output {out.shape}")
+    profile_decode(eng, toks, step_ms)
+    stats = {"static": dict(prefill_ms=pre_s * 1e3, ms_per_step=step_ms)}
+
+    kw = dict(max_len=1024, page_size=128, max_batch=8,
+              prefill_chunk_tokens=256)
+    carry = ContinuousEngine(cfg, params, n_pages=20, decode_steps=4,
+                             prefill_context="carry", **kw)
+    rids = [carry.submit(p, steps) for p in toks]
+    got = carry.run()
+    differ = [i for i, r in enumerate(rids)
+              if not np.array_equal(got[r], out[i])]
+    log(f"[gemma] carry context (K=4) on the static prompts: tokens equal "
+        f"the static engine's for all {b}: {not differ}")
+    if differ:
+        fails.append(f"gemma: carry-context tokens differ from static for "
+                     f"requests {differ}")
+    del carry
+
+    reqs = _continuous_traffic(cfg.vocab)
+    outs = {}
+    for k in (1, 4):
+        outs[k], stats[f"K={k}"], launches = _continuous_run(
+            "gemma", smi, cfg, params, dict(kw, prefix_cache=True), reqs, k,
+            fails)
+        if k == 1:
+            for name in ("rmmec_matmul", "paged_flash_decode",
+                         "paged_flash_prefill"):
+                summary[name]["launches_gemma_continuous"] = launches[name]
+        if stats[f"K={k}"]["prefix_hits"] < 1:
+            fails.append(f"gemma continuous K={k}: no prefix hit")
+    differ = [i for i in outs[1] if not np.array_equal(outs[1][i], outs[4][i])]
+    log(f"[gemma] continuous K=1 and K=4 tokens equal for all {len(reqs)} "
+        f"requests: {not differ}")
+    if differ:
+        fails.append(f"gemma continuous: K=1 and K=4 tokens differ for "
+                     f"requests {differ}")
+    summary["gemma"] = stats
+
+
+def _frontend_batch(cfg, b: int, s: int, seed: int):
+    """Phase 3g's batch: frame embeddings (audio) or ``n_patches`` patch
+    embeddings spliced ahead of ``s - n_patches`` text tokens (vision),
+    numpy ``seed``, x 0.02 as ``TokenStream`` makes them."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio":
+        emb = rng.standard_normal((b, s, cfg.d_model)) * 0.02
+        return {"frame_embeds": torch.as_tensor(emb, dtype=torch.float32,
+                                                device="cuda")}
+    pe = rng.standard_normal((b, cfg.n_patches, cfg.d_model)) * 0.02
+    toks = rng.integers(0, cfg.vocab, (b, s))
+    return {"tokens": torch.as_tensor(toks, device="cuda"),
+            "patch_embeds": torch.as_tensor(pe, dtype=torch.float32,
+                                            device="cuda")}
+
+
+def _frontend_serve(cfg, params, batch, steps: int, max_len: int):
+    """The reference's frontend serving path: ``zoo.apply_model``
+    (prefill, last position), ``zoo.quantize_cache`` into a posit8 cache
+    of ``max_len`` slots, then ``steps`` greedy ``zoo.decode_model``
+    steps.  Returns (prefill logits, [decode logits], tokens (B, steps))."""
+    from repro_torch.models import zoo
+    with torch.inference_mode():
+        logits, cache = zoo.apply_model(params, batch, cfg, last_only=True)
+        q = zoo.quantize_cache(cache)
+        b, s = q["k_codes"].shape[1:3]
+        full = zoo.init_cache(cfg, b, max_len, quantized_kv=True)
+        for key, v in q.items():
+            full[key][:, :, :s] = v
+        del cache, q
+        tok = logits[:, -1:].argmax(-1)
+        toks, steps_logits = [], []
+        for i in range(steps):
+            toks.append(tok)
+            lg, full = zoo.decode_model(params, tok, cfg, full, s + i)
+            tok = lg[:, -1:].argmax(-1)
+            steps_logits.append(lg)
+    return logits, steps_logits, torch.cat(toks + [tok[:, :0]], dim=1)
+
+
+def _frontend_phase(summary, fails, tag, cfg, params, batch, steps, max_len,
+                    expect_fwd, expect_step, dequant_step) -> None:
+    """One frontend config through ``_frontend_serve``: exact launch
+    counts of the prefill and the decode steps, finite logits, ms per
+    decode step from the launches' run, one profiled step, peak memory."""
+    smi = card()
+    _frontend_serve(cfg, params, batch, 2, max_len)            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _, pre_s, _ = _counted(
+        lambda: _frontend_serve(cfg, params, batch, 0, max_len))
+    (pl, dl, toks), wall, launches = _counted(
+        lambda: _frontend_serve(cfg, params, batch, steps, max_len))
+    step_ms = (wall - pre_s) / steps * 1e3
+    b = toks.shape[0]
+    expect = {"rmmec_matmul": expect_fwd * (1 + steps),
+              "flash_decode": expect_step * steps,
+              "dequant": dequant_step * steps, "paged_flash_decode": 0,
+              "paged_flash_prefill": 0, "quire_dot": 0}
+    _check_launches(tag, launches, expect, fails)
+    for name in ("rmmec_matmul", "flash_decode", "dequant"):
+        if expect[name]:
+            summary[name][f"launches_{tag}"] = launches[name]
+    finite = bool(torch.isfinite(pl).all()) and all(
+        bool(torch.isfinite(x).all()) for x in dl)
+    shape_ok = tuple(pl.shape) == (b, 1, cfg.vocab) and all(
+        tuple(x.shape) == (b, 1, cfg.vocab) for x in dl)
+    prompt = next(iter(batch.values())).shape[1]
+    log(f"[{tag}] {smi}, B={b}, prompt {prompt}, {steps} greedy steps: "
+        f"prefill {pre_s * 1e3:.1f} ms, decode {step_ms:.2f} ms/step, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; logits finite "
+        f"{finite}, shapes {shape_ok}; tokens {toks[0, :8].tolist()}")
+    if not (finite and shape_ok):
+        fails.append(f"{tag}: logits finite {finite}, shapes {shape_ok}")
+    if not (0 <= int(toks.min()) and int(toks.max()) < cfg.vocab):
+        fails.append(f"{tag}: tokens outside the vocabulary")
+    w0, d0, _ = _profile(lambda: _frontend_serve(cfg, params, batch, 0,
+                                                 max_len))
+    w1, d1, _ = _profile(lambda: _frontend_serve(cfg, params, batch, 2,
+                                                 max_len))
+    if d1:
+        busy = (sum(v[0] for v in d1.values())
+                - sum(v[0] for v in d0.values())) / 2
+        n = (sum(v[1] for v in d1.values())
+             - sum(v[1] for v in d0.values())) / 2
+        wall_p = (w1 - w0) / 2
+        log(f"[{tag}] profiled decode step: wall {wall_p:.2f} ms, device "
+            f"busy {busy:.2f} ms, busy share {busy / wall_p:.3f} profiled / "
+            f"{busy / step_ms:.3f} unprofiled, kernel launches {n:.0f}")
+    else:
+        log(f"[{tag}] the profiler recorded no device time")
+    summary[tag] = dict(prefill_ms=pre_s * 1e3, ms_per_step=step_ms,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_frontends(summary, fails) -> None:
+    """Phase 3g: the audio and vision frontends at full width, nothing
+    cut, through the reference's frontend serving path (the model entry
+    points: the engines take token prompts only).  qwen2-vl-7b
+    (arXiv:2409.12191: 28 layers, d 3584, 28/4 heads of 128, d_ff 18944,
+    vocab 152064 untied, M-RoPE): B=2, 256 patch embeddings (numpy seed
+    3) ahead of 128 text tokens; RMMEC 7 x 28 + 1 = 197 a forward (the
+    posit16 read-out on the SIMT route), ``flash_decode`` 28 a step.
+    musicgen-medium (arXiv:2306.05284: 48 layers, d 1536, 24/24 heads of
+    64, d_ff 6144 GELU, vocab 2048): B=2, 256 frame embeddings; RMMEC 6 x
+    48 + 1 = 289 a forward, ``flash_decode`` 48 and ``dequant`` 1 (the
+    code embed through the posit16 ``lm_head``) a step.  32 greedy steps
+    each; every packed projection and the read-out against plain at
+    M=2; the read-out's time beside its bytes bound."""
+    from repro_torch.configs import get_config
+    for arch, tag, per_layer, max_len in (("qwen2-vl-7b", "qwen2vl", 7, 512),
+                                          ("musicgen-medium", "musicgen", 6,
+                                           384)):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        params = _init_packed(tag, cfg)
+        if "embed" in params:       # cast once, as the serving engines do
+            params["embed"] = {"table": params["embed"]["table"].to(
+                torch.bfloat16)}
+        _rmmec_path_cases(tag, params, summary, fails, ms=(2,))
+        _readout_time(tag, params, 2, summary)
+        batch = _frontend_batch(cfg, 2, 384 if cfg.frontend == "vision"
+                                else 256, 3)
+        _frontend_phase(summary, fails, tag, cfg, params, batch, 32, max_len,
+                        per_layer * cfg.n_layers + 1, cfg.n_layers,
+                        int(cfg.frontend == "audio"))
+        del params, batch
+        torch.cuda.empty_cache()
+        log(f"[time] {arch} (3g) {time.perf_counter() - t0:.1f} s")
+
+
+def phase_wide_dense(summary, fails) -> None:
+    """Phase 3h: deepseek-67b (arXiv:2401.02954: d 8192, 64/8 heads of
+    128, d_ff 22016, vocab 102400) and command-r-plus-104b
+    (hf:CohereForAI/c4ai-command-r-v01: d 12288, 96/8 heads of 128, d_ff
+    33792, vocab 256000) at full width, depth cut to 2 layers (from 95 /
+    64: the whole stacks cannot be drawn and packed on one card within
+    the run's time; the only cut).  Every packed projection against
+    plain at M = 1, 8, 128 (command-r's widest: gate/up 12288 -> 33792,
+    down 33792 -> 12288), the posit16 read-out (up to 12288 x 256000 on
+    the SIMT route) at M=4 against plain and timed beside its bytes
+    bound; static ``ServeEngine`` batch 4, prompt 64, 8 steps (RMMEC 7 x 2
+    + 1 a forward, ``flash_decode`` 2 a step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ServeEngine
+    smi = card()
+    for arch, tag in (("deepseek-67b", "deepseek2"),
+                      ("command-r-plus-104b", "commandr2")):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        params = _init_packed(tag, cfg)
+        _rmmec_path_cases(tag, params, summary, fails, ms=(1, 8, 128))
+        _readout_time(tag, params, 4, summary)
+        b, s0, steps = 4, 64, 8
+        eng = ServeEngine(cfg, params, max_len=128, quantized_kv=True)
+        del params
+        toks = np.random.default_rng(0).integers(0, cfg.vocab, (b, s0))
+        eng.generate(toks, 1)                        # warm-up
+        _, pre_s, _ = _counted(lambda: eng.generate(toks, 0))
+        torch.cuda.reset_peak_memory_stats()
+        out, wall, launches = _counted(lambda: eng.generate(toks, steps))
+        step_ms = (wall - pre_s) / steps * 1e3
+        _check_launches(tag, launches, {
+            "rmmec_matmul": (7 * cfg.n_layers + 1) * (1 + steps),
+            "flash_decode": cfg.n_layers * steps, "paged_flash_decode": 0,
+            "paged_flash_prefill": 0, "dequant": 0, "quire_dot": 0}, fails)
+        for name in ("rmmec_matmul", "flash_decode"):
+            summary[name][f"launches_{tag}"] = launches[name]
+        if out.shape != (b, s0 + steps) or out.min() < 0 \
+                or out.max() >= cfg.vocab:
+            fails.append(f"{tag}: bad output {out.shape}")
+        log(f"[{tag}] {smi}, static B={b} prompt={s0} steps={steps}: "
+            f"prefill {pre_s * 1e3:.1f} ms, decode {step_ms:.2f} ms/step, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"tokens {out[0, s0:].tolist()}")
+        summary[tag] = dict(prefill_ms=pre_s * 1e3, ms_per_step=step_ms)
+        del eng
+        torch.cuda.empty_cache()
+        log(f"[time] {arch} depth 2 (3h) {time.perf_counter() - t0:.1f} s")
+
+
+NEW_LOGIT_REL = 1e-5     # of max|logit|: float32, only sum order differs
+
+
+def phase_new_parity(fails) -> None:
+    """Phase 4d: the five new configs, ``.reduced()`` in float32 with one
+    seeded ``paper_mixed`` tree, on the card and on the CPU: logits of the
+    prefill and of 4 decode steps on the contiguous posit8 cache (the
+    CPU's greedy tokens fed to both) within ``NEW_LOGIT_REL`` x max|logit|;
+    gemma also through ``ContinuousEngine`` (pages context, prefix cache,
+    K=2), tokens equal on both devices."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models import zoo
+    from repro_torch.serve.engine import ContinuousEngine
+    policy = PrecisionPolicy.paper_mixed()
+    for arch in ("gemma-2b", "deepseek-67b", "command-r-plus-104b",
+                 "musicgen-medium", "qwen2-vl-7b"):
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        params = zoo.pack_params(
+            zoo.init_model(cfg, torch.Generator("cpu").manual_seed(5)),
+            policy)
+        rng = np.random.default_rng(5)
+        b, s = 2, 24
+        batch = {"tokens": rng.integers(0, cfg.vocab, (b, s))}
+        if cfg.frontend == "audio":
+            batch = {"frame_embeds": (rng.standard_normal(
+                (b, s, cfg.d_model)) * 0.02).astype(np.float32)}
+        elif cfg.frontend == "vision":
+            batch["patch_embeds"] = (rng.standard_normal(
+                (b, cfg.n_patches, cfg.d_model)) * 0.02).astype(np.float32)
+        res, toks = {}, []
+        for dev in ("cpu", "cuda"):             # the CPU's tokens feed both
+            p = _to(params, dev)
+            bt = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            with torch.inference_mode():
+                lg, cache = zoo.apply_model(p, bt, cfg)
+                q = zoo.quantize_cache(cache)
+                full = zoo.init_cache(cfg, b, 32, quantized_kv=True,
+                                      device=dev)
+                for key, v in q.items():
+                    full[key][:, :, :s] = v
+                logits = [lg.cpu()]
+                for i in range(4):
+                    if dev == "cpu":
+                        toks.append(logits[-1][:, -1:].argmax(-1))
+                    lg, full = zoo.decode_model(p, toks[i].to(dev), cfg,
+                                                full, s + i)
+                    logits.append(lg.cpu())
+            res[dev] = logits
+        worst = 0.0
+        for got, want in zip(res["cuda"], res["cpu"]):
+            rel = (got - want).abs().max().item() / max(
+                want.abs().max().item(), 1e-30)
+            worst = max(worst, rel)
+        ok = worst <= NEW_LOGIT_REL
+        log(f"[newparity] {cfg.name} (float32, paper_mixed): prefill and 4 "
+            f"decode steps, card vs CPU max |diff| / max|logit| {worst:.3e} "
+            f"(tol {NEW_LOGIT_REL}) {'ok' if ok else 'MISS'}")
+        if not ok:
+            fails.append(f"new parity {cfg.name}: logits differ by "
+                         f"{worst:.3e} of max|logit|")
+        if arch != "gemma-2b":
+            continue
+        reqs = [(rng.integers(0, cfg.vocab, n), new)
+                for n, new in ((10, 9), (40, 12), (70, 6), (33, 8))]
+        pre = rng.integers(0, cfg.vocab, 32)
+        reqs = [(np.concatenate([pre, p]) if i % 2 else p, n)
+                for i, (p, n) in enumerate(reqs)]
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            eng = ContinuousEngine(cfg, _to(params, dev), n_pages=10,
+                                   page_size=16, max_batch=3, max_len=128,
+                                   prefill_chunk_tokens=32, prefix_cache=True,
+                                   decode_steps=2, device=dev)
+            rids = [eng.submit(p, n) for p, n in reqs]
+            done = eng.run()
+            outs[dev] = [done[r] for r in rids]
+            hits = eng.scheduler.prefix.hits
+        same = all(np.array_equal(a, c) for a, c in zip(outs["cuda"],
+                                                         outs["cpu"]))
+        log(f"[newparity] {cfg.name} ContinuousEngine (pages, prefix cache, "
+            f"K=2, {hits} prefix hits): tokens equal on card and CPU: {same}")
+        if not same or hits < 1:
+            fails.append(f"new parity {cfg.name}: continuous tokens equal "
+                         f"{same}, {hits} prefix hits")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -2698,6 +3255,10 @@ def main() -> int:
     phase_engine_kernels(summary, fails)
     log(f"[time] kernel checks {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    phase_new_heads(summary, fails)
+    log(f"[time] new head shapes and the audio embed (2b) "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_serve(summary, fails)
     log(f"[time] full-width serve {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2719,6 +3280,21 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_stateful_parity(fails)
     log(f"[time] recurrent/hybrid/MoE parity (4c) "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_gemma(summary, fails)
+    log(f"[time] gemma-2b full size (3f) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_frontends(summary, fails)
+    log(f"[time] frontends at full width (3g) "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_wide_dense(summary, fails)
+    log(f"[time] deepseek / command-r full width, depth 2 (3h) "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_new_parity(fails)
+    log(f"[time] new configs, card vs CPU (4d) "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_engine_plane(summary, fails)
@@ -2759,6 +3335,12 @@ def main() -> int:
         if name == "rmmec_matmul":   # the prefill shapes beside decode's
             kernels[-1].update({key: s[key] for key in (
                 "ms_m256", "ms_m1024", "library_ms_m1024", "bound_ms_m1024")})
+            # the posit16 read-outs of phases 3g / 3h (SIMT route)
+            kernels[-1].update({key: v for key, v in s.items()
+                                if "_readout_" in key})
+        elif name == "flash_decode":   # the new head shapes (phase 2b)
+            kernels[-1].update({key: v for key, v in s.items() if key.startswith(
+                ("ms_", "plain_ms_", "library_ms_", "bound_ms_"))})
         elif name in ("dequant", "quire_dot"):   # the second timed shape
             kernels[-1].update({key: v for key, v in s.items()
                                 if key.startswith(("ms_", "bound_ms_"))})

@@ -1,4 +1,5 @@
-"""Model configuration dataclass (a copy of ``repro.configs.base``).
+"""Model / shape / run configuration dataclasses (a copy of
+``repro.configs.base``).
 
 The port keeps its own copy so that it imports nothing of the JAX
 package; the field names and defaults are the reference's, so a config
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["ModelConfig", "RunConfig"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "RunConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +103,60 @@ class ModelConfig:
             ssm_chunk=8,
             remat="none",
         )
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head)."""
+        d, f, v, L = self.d_model, self.d_ff, self.vocab, self.n_layers
+        hd = self.resolved_head_dim
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        per_layer = 0
+        if self.n_heads:
+            per_layer += d * hd * (self.n_heads + 2 * self.n_kv_heads)  # qkv
+            per_layer += self.n_heads * hd * d                           # out
+        ff_mats = 3 if self.ffn_kind in ("swiglu", "geglu") else 2
+        n_attnish = self.n_attn_layers
+        n_ssm = L - n_attnish
+        if self.family == "ssm":
+            n_ssm, n_attnish = L, 0
+            per_layer = 0
+        total = emb + n_attnish * per_layer
+        # ffn/moe per layer
+        if self.n_experts:
+            moe_layers = L // self.moe_every
+            dense_layers = L - moe_layers
+            ef = self.moe_d_ff or f
+            total += moe_layers * (self.n_experts + self.shared_experts) \
+                * ef * d * ff_mats
+            total += moe_layers * d * self.n_experts  # router
+            if self.dense_residual:
+                total += moe_layers * f * d * ff_mats
+            total += dense_layers * f * d * ff_mats
+        else:
+            total += L * f * d * ff_mats
+        # ssm/rwkv mixers
+        if self.family == "ssm":
+            total += L * (d * d * 5 // 1)  # r,k,v,g,o projections approx
+            total += L * d * f  # channel mix (2 mats, f=7168/2? keep approx)
+        if self.family == "hybrid":
+            din = d * self.mamba_expand
+            total += n_ssm * (d * din * 2 + din * d + din * self.mamba_d_state * 2)
+        return total
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,10 @@
+"""gemma-2b [dense] -- GeGLU, head_dim=256, MQA (kv=1) [arXiv:2403.08295; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma-2b", family="dense",
+    n_layers=18, d_model=2048, n_heads=8, n_kv_heads=1,
+    d_ff=16384, vocab=256000, head_dim=256,
+    ffn_kind="geglu", tie_embeddings=True,
+    source="arXiv:2403.08295; hf",
+)

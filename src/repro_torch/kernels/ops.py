@@ -40,6 +40,11 @@ __all__ = ["PackedTensor", "pack_tensor", "unpack_tensor", "to_dense",
 
 PACKED_TENSOR_VERSION = 2
 
+# a 2-D weight of more elements packs in column slabs of about this many
+# (its f32 intermediates stay a few GB: command-r-plus's 12288 x 256000
+# read-out is 12.6 GB in f32)
+PACK_SLAB = 1 << 26
+
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
@@ -76,7 +81,10 @@ def pack_tensor(spec: FormatSpec, w: torch.Tensor,
     the format's default scale method and per-(K-group, channel) scales
     (``group_size`` None: per channel).  A 2-D weight is padded to the
     kernel blocks ``(bm, bk, bn)`` (default ``default_blocks(spec)``),
-    which also set the mask's granularity; a stacked one ignores them."""
+    which also set the mask's granularity; a stacked one ignores them.
+    A 2-D weight over ``PACK_SLAB`` elements packs in column slabs of
+    whole N blocks: each code, scale and mask block depends on its own
+    columns only, so the slabs concatenate to the whole pack."""
     if w.dim() < 2:
         raise ValueError("pack_tensor needs a trailing (K, N) matrix")
     lead, (k, n) = tuple(w.shape[:-2]), tuple(w.shape[-2:])
@@ -88,6 +96,14 @@ def pack_tensor(spec: FormatSpec, w: torch.Tensor,
         _, bk, bn = blocks or default_blocks(spec)
         if g is not None and bk % g:
             raise ValueError(f"K block {bk} not a multiple of group {g}")
+        step = max(bn, PACK_SLAB // max(k, 1) // bn * bn)
+        if n > step:
+            parts = [pack_tensor(spec, w[:, c:c + step], group_size, blocks)
+                     for c in range(0, n, step)]
+            return dataclasses.replace(
+                parts[0], shape=(k, n), **{
+                    f: torch.cat([getattr(t, f) for t in parts], dim=-1)
+                    for f in ("words", "scales", "mask")})
     else:
         bk, bn = (g or 1), per
     kp, np_ = _round_up(k, bk), _round_up(n, bn)

@@ -5,7 +5,7 @@ serving, with the packed weight plane.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
       --policy mixed --batch 8 --prompt-len 128 --steps 32 --quantized-kv
 
-``--continuous`` serves a ragged request mix (2 x ``--batch`` requests
+``--continuous`` (alias ``--paged``) serves a ragged request mix (2 x ``--batch`` requests
 around the nominal prompt and step counts) through ``ContinuousEngine``:
 FIFO admission against a pool of ``--n-pages`` pages, one batched decode
 dispatch for all running requests.  ``--prefill-chunk N`` prefills in
@@ -24,11 +24,19 @@ runs the decode dispatch before it.
 
   ... --disagg --batch 8 --n-pages 48 --prefill-chunk 16 --decode-steps 4
 
-``--arch`` takes every registered config: the dense qwen2-0.5b, the MoE
-arctic-480b and kimi-k2-1t-a32b, the recurrent rwkv6-1.6b and the hybrid
-jamba-v0.1-52b.  The recurrent and hybrid families keep posit8 state
-slabs in the paged engines and prefill on the carry context, so
-``--prefix-cache`` is refused for them.
+``--trace OUT.json`` records the paged engines' request-lifecycle events
+and step spans and writes a Chrome-trace JSON after the run;
+``--metrics`` prints a Prometheus text snapshot of the engine's metric
+registry after the run.  The static engine carries no telemetry and
+says so.
+
+``--arch`` takes all ten registered configs.  The recurrent and hybrid
+families keep posit8 state slabs in the paged engines and prefill on the
+carry context, so ``--prefix-cache`` is refused for them.  The paged
+engines refuse the audio and vision frontends (musicgen-medium,
+qwen2-vl-7b), whose requests carry frame / patch embeddings, and the
+static engine needs those embeddings in its batch: serve them through
+``zoo.apply_model`` / ``zoo.decode_model``, as the reference does.
 
   ... --arch rwkv6-1.6b --continuous --batch 4 --prefill-chunk 16
   ... --arch jamba-v0.1-52b --disagg --batch 4 --prefill-chunk 16
@@ -49,6 +57,7 @@ from .. import resolve_device
 from ..configs import get_config
 from ..core.policy import PrecisionPolicy
 from ..models import zoo
+from ..obs import TraceRecorder
 from ..serve.disagg import DisaggEngine
 from ..serve.engine import ContinuousEngine, ServeEngine
 
@@ -70,6 +79,7 @@ def _static(args, cfg, params, policy, device, gen) -> None:
 
 def _continuous(args, cfg, params, policy, device) -> None:
     from ..kernels.flash_decode import default_kv_block
+    rec = TraceRecorder() if (args.trace or args.metrics) else None
     rng = np.random.default_rng(args.seed)
     max_len = args.prompt_len + args.steps + 8
     page_size = args.page_size
@@ -89,7 +99,7 @@ def _continuous(args, cfg, params, policy, device) -> None:
                   temperature=args.temperature, seed=args.seed,
                   prefill_chunk_tokens=args.prefill_chunk,
                   prefix_cache=args.prefix_cache,
-                  decode_steps=args.decode_steps)
+                  decode_steps=args.decode_steps, trace=rec)
     if args.disagg:
         eng = DisaggEngine(cfg, params, prefill_pages=args.n_pages,
                            decode_pages=args.n_pages, prefill_device=device,
@@ -147,6 +157,17 @@ def _continuous(args, cfg, params, policy, device) -> None:
               f"{px.evictions} evictions")
     for r in rids[:2]:
         print(f"  req {r}: {np.asarray(finished[r].generated)}")
+    if rec is not None:
+        print("slo (ms):")
+        for name, s in rec.slo_summary().items():
+            print(f"  {name:>17}: p50 {s['p50']:8.2f}  p95 {s['p95']:8.2f}  "
+                  f"p99 {s['p99']:8.2f}  (n={s['n']})")
+    if args.trace:
+        rec.write_chrome_trace(args.trace)
+        print(f"wrote Chrome trace ({len(rec)} events) to {args.trace} -- "
+              f"open in Perfetto (ui.perfetto.dev) or chrome://tracing")
+    if args.metrics:
+        print(eng.metrics.prometheus_text(), end="")
 
 
 def main() -> None:
@@ -166,7 +187,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
-    ap.add_argument("--continuous", action="store_true",
+    ap.add_argument("--continuous", "--paged", action="store_true",
                     help="serve through the paged-KV ContinuousEngine")
     ap.add_argument("--disagg", action="store_true",
                     help="disaggregated prefill/decode serving: a prefill "
@@ -188,6 +209,14 @@ def main() -> None:
     ap.add_argument("--decode-steps", type=int, default=1,
                     help="decode+sample iterations per dispatch "
                          "(temperature-0 output is the same for every K)")
+    ap.add_argument("--trace", metavar="OUT.json", default=None,
+                    help="record request-lifecycle events and step spans "
+                         "and write a Chrome-trace JSON (open in "
+                         "Perfetto); paged engines only")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print a Prometheus text snapshot of the "
+                         "engine's metric registry after the run; paged "
+                         "engines only")
     args = ap.parse_args()
 
     device = resolve_device(args.device)
@@ -203,6 +232,10 @@ def main() -> None:
     if args.continuous or args.disagg:
         _continuous(args, cfg, params, policy, device)
     else:
+        if args.trace or args.metrics:
+            print("note: --trace/--metrics need the paged engines "
+                  "(--continuous/--disagg); the static engine carries "
+                  "no telemetry")
         _static(args, cfg, params, policy, device, gen)
 
 

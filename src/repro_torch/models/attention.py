@@ -58,9 +58,9 @@ def _qkv(p, x, cfg, positions):
     q = L.dense(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
     k = L.dense(p["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
     v = L.dense(p["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
-    q = L.rope(q, positions, cfg.rope_theta)
-    k = L.rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    rotate = L.mrope if cfg.rope_kind == "mrope" else L.rope
+    return (rotate(q, positions, cfg.rope_theta),
+            rotate(k, positions, cfg.rope_theta), v)
 
 
 def _attend_block(q5, k, v, bias):
@@ -117,6 +117,8 @@ def attn_apply(p, x, cfg, positions=None, kv_mask=None):
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
+        if cfg.rope_kind == "mrope":
+            positions = positions.expand(3, b, s)
     q, k, v = _qkv(p, x, cfg, positions)
     g = cfg.n_heads // cfg.n_kv_heads
     q5 = q.reshape(b, s, cfg.n_kv_heads, g, q.shape[-1])
@@ -293,7 +295,12 @@ def _attn_decode_paged(p, x, cfg, layer_cache):
     b = x.shape[0]
     page_table = layer_cache["page_table"]
     positions = layer_cache["positions"]
-    q, k_new, v_new = _qkv(p, x, cfg, positions[:, None])
+    pos2 = positions[:, None]
+    if cfg.rope_kind == "mrope":
+        # text continuation: the t/h/w streams all advance with the 1-D
+        # position, as on the contiguous decode path
+        pos2 = pos2.expand(3, b, 1)
+    q, k_new, v_new = _qkv(p, x, cfg, pos2)
     psize = layer_cache["k_codes"].shape[1]
     pos = positions.long()
     pg = page_table.gather(1, (pos // psize)[:, None])[:, 0].long()
@@ -324,6 +331,8 @@ def attn_decode(p, x, cfg, layer_cache, pos: int, pad=None):
                                device=x.device)
     else:
         positions = (pos - pad).to(torch.int32)[:, None]
+    if cfg.rope_kind == "mrope":
+        positions = positions.expand(3, b, 1)
     q, k_new, v_new = _qkv(p, x, cfg, positions)
     _cache_write(layer_cache, k_new, v_new, pos)
     g = cfg.n_heads // cfg.n_kv_heads

@@ -24,8 +24,8 @@ import torch
 from ..kernels.ops import PackedTensor, packed_matmul
 
 __all__ = ["dense_init", "dense", "rmsnorm_init", "rmsnorm", "embed_init",
-           "embed", "embed_logits", "ffn_init", "ffn", "rope", "rope_freqs",
-           "normal", "rowstable_matmul"]
+           "embed", "embed_logits", "ffn_init", "ffn", "rope", "mrope",
+           "rope_freqs", "normal", "rowstable_matmul"]
 
 # rows of one GEMM of ``rowstable_matmul`` on the card
 ROW_TILE = 64
@@ -138,11 +138,38 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
+def _apply_rot(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x (B, S, H, Dh); positions (B, S) int."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)
     ang = positions[..., None].float() * freqs
     cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
-    x1, x2 = torch.chunk(x, 2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return _apply_rot(x, cos, sin)
+
+
+def mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+          sections=None) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): the Dh/2 frequency dims are split into
+    (t, h, w) sections, each rotated by its own position stream.
+
+    x (B, S, H, Dh); positions3 (3, B, S) int.  The default sections are
+    the reference's: (16, 24, 24) at Dh 128."""
+    half = x.shape[-1] // 2
+    if sections is None:
+        hw = 3 * half // 8
+        sections = (half - 2 * hw, hw, hw)
+    assert sum(sections) == half, (sections, half)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(list(sections), device=x.device))
+    ang = positions3[sec_id].movedim(0, -1).float() * freqs
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    return _apply_rot(x, cos, sin)

@@ -16,7 +16,13 @@ groups) with a Python loop over slices in place of ``lax.scan``.  A paged
 cache's page table and positions go to every attention layer as they
 are.  Decode updates the cache in place: attention writes its token's
 KV, and recurrent layers copy their new (possibly posit8) state into the
-stacked leaves.  Frontends and M-RoPE raise.
+stacked leaves.
+
+The modality frontends are the reference's stubs: an audio config
+(musicgen) takes precomputed ``frame_embeds`` in place of tokens, has no
+``embed`` and decodes a code through the transposed ``lm_head``; a
+vision config (qwen2-vl) splices ``patch_embeds`` over its first tokens
+and rotates with M-RoPE over (t, h, w) position streams.
 
 ``lm_apply(mode="train")`` is the differentiable forward of ``lm_loss``
 (dense and MoE families): it builds no cache, fake-quantizes one layer's
@@ -26,6 +32,7 @@ backward per ``cfg.remat``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -33,7 +40,7 @@ import torch
 from .. import resolve_device
 from ..core.formats import torch_dtype
 from ..core.qat import quantize_tree
-from ..kernels.ops import PackedTensor
+from ..kernels.ops import PackedTensor, dequant
 from . import attention as A
 from . import layers as L
 from . import moe as M
@@ -44,14 +51,16 @@ __all__ = ["lm_init", "lm_apply", "lm_decode", "init_cache",
 
 _FAMILY_MIXER = {"dense": "attn", "moe": "attn", "ssm": "rwkv",
                  "hybrid": "group"}
+_FRONTENDS = ("none", "audio", "vision")
+_ROPE_KINDS = ("default", "mrope")
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in _FAMILY_MIXER or cfg.frontend != "none" \
-            or cfg.rope_kind != "default":
+    if cfg.family not in _FAMILY_MIXER or cfg.frontend not in _FRONTENDS \
+            or cfg.rope_kind not in _ROPE_KINDS:
         raise NotImplementedError(
-            f"the port serves text decoders of the families "
-            f"{sorted(_FAMILY_MIXER)} with default RoPE so far; "
+            f"the port serves the families {sorted(_FAMILY_MIXER)} with the "
+            f"frontends {_FRONTENDS} and RoPE kinds {_ROPE_KINDS}; "
             f"{cfg.name} is family={cfg.family!r}, frontend="
             f"{cfg.frontend!r}, rope_kind={cfg.rope_kind!r}")
 
@@ -175,10 +184,12 @@ def _group_apply(p, x, cfg, positions, cache=None, pos: int = 0,
 def lm_init(cfg, generator: Optional[torch.Generator] = None, device=None,
             policy=None):
     """Random parameters; ``generator`` (seeded, on the target device)
-    decides the device, else a generator seeded 0 on ``device``.  With a
-    ``policy`` every block's weights are packed as soon as the block is
+    decides the device, else a generator seeded 0 on ``device``.  A
+    layer stack is drawn one layer at a time.  With a ``policy`` each
+    layer (each hybrid sub-block stack) is packed as soon as it is
     drawn, so the f32 tree of a model too big for the card never exists
-    whole (the result equals ``zoo.pack_params`` of the f32 tree)."""
+    whole (the result equals ``zoo.pack_params`` of the f32 tree).  An
+    audio config has no ``embed`` and always an ``lm_head``."""
     _check_family(cfg)
     if generator is None:
         generator = torch.Generator(resolve_device(device)).manual_seed(0)
@@ -191,7 +202,9 @@ def lm_init(cfg, generator: Optional[torch.Generator] = None, device=None,
         from .zoo import pack_params
         return pack_params(node, policy, prefix=path)
 
-    p: Dict[str, Any] = {"embed": L.embed_init(generator, cfg.vocab, d)}
+    p: Dict[str, Any] = {}
+    if cfg.frontend != "audio":
+        p["embed"] = L.embed_init(generator, cfg.vocab, d)
     mixer = _family_mixer(cfg)
     if mixer == "group":
         n = cfg.n_layers // cfg.attn_every
@@ -200,14 +213,61 @@ def lm_init(cfg, generator: Optional[torch.Generator] = None, device=None,
                             f"groups/b{i}")
             for i, (m, use_moe) in enumerate(_group_layout(cfg))}
     else:
-        p["layers"] = packed(_block_init(generator, cfg, mixer,
-                                         cfg.family == "moe",
-                                         (cfg.n_layers,)), "layers")
+        p["layers"] = _concat([
+            packed(_block_init(generator, cfg, mixer, cfg.family == "moe",
+                               (1,)), "layers")
+            for _ in range(cfg.n_layers)])
     p["final_norm"] = L.rmsnorm_init(d, device=dev)
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings or cfg.frontend == "audio":
         p["lm_head"] = packed(L.dense_init(generator, d, cfg.vocab),
                               "lm_head")
     return p
+
+
+def _concat(trees):
+    """Per-layer trees with a leading axis of 1 -> one stacked tree (a
+    packed leaf's words, scales and mask concatenated alike: a stacked
+    pack is per slice, so this equals packing the whole stack)."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _concat([t[k] for t in trees]) for k in t0}
+    if isinstance(t0, PackedTensor):
+        return dataclasses.replace(
+            t0, **{f: torch.cat([getattr(t, f) for t in trees])
+                   for f in ("words", "scales", "mask")})
+    return torch.cat(trees)
+
+
+def _inputs_to_embeds(p, batch, cfg, dtype):
+    """(x, positions) from the batch through the modality frontend (the
+    reference's stub: precomputed frame / patch embeddings arrive in the
+    batch).  Positions are None where the arange applies."""
+    if cfg.frontend == "audio":
+        return batch["frame_embeds"].to(dtype), None
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = L.embed(p["embed"], tokens, dtype)
+    if cfg.frontend == "vision":
+        pe = batch["patch_embeds"].to(dtype)
+        n_p = pe.shape[1]
+        x = torch.cat([pe, x[:, n_p:]], dim=1)
+        return x, _mrope_positions(cfg, b, s, n_p, x.device)
+    # ragged left-padded serving batches override the arange: position 0
+    # sits at each request's first real token
+    return x, batch.get("positions")
+
+
+def _mrope_positions(cfg, b: int, s: int, n_patches: int, device=None):
+    """(3, B, S) int32: patches get (t=0, h, w) grid ids; text continues
+    1-D from ``idx - n_patches + 1`` on all three streams."""
+    side = max(int(n_patches ** 0.5), 1)
+    idx = torch.arange(s, dtype=torch.int32, device=device)
+    is_patch = idx < n_patches
+    text = idx - n_patches + 1
+    t = torch.where(is_patch, 0, text)
+    h = torch.where(is_patch, idx // side, text)
+    w = torch.where(is_patch, idx % side, text)
+    return torch.stack([t, h, w])[:, None, :].expand(3, b, s)
 
 
 def _layer(tree, i: int):
@@ -298,7 +358,9 @@ def lm_apply(p, batch, cfg, last_only: bool = False, mode: str = "prefill",
     f32 state carried from the previous chunk (the new state is
     returned).  ``last_only`` reads out the final position only.
     ``batch``: ``tokens`` (B, S), optional ``positions`` (B, S) and
-    ``kv_mask`` (B, S) bool for left-padded ragged batches."""
+    ``kv_mask`` (B, S) bool for left-padded ragged batches; an audio
+    config takes ``frame_embeds`` (B, S, D) in place of tokens, a vision
+    config also ``patch_embeds`` (B, P, D) over its first P tokens."""
     _check_family(cfg)
     if mode == "train":
         logits, aux = _train_forward(p, batch, cfg, policy)
@@ -309,8 +371,7 @@ def lm_apply(p, batch, cfg, last_only: bool = False, mode: str = "prefill",
     if policy is not None:
         raise ValueError("a QAT policy applies to mode='train' only; "
                          "serving packs the weights (zoo.pack_params)")
-    x = L.embed(p["embed"], batch["tokens"], torch_dtype(cfg.dtype))
-    positions = batch.get("positions")
+    x, positions = _inputs_to_embeds(p, batch, cfg, torch_dtype(cfg.dtype))
     kv_mask = batch.get("kv_mask")
     cache, meta = _pop_paged_meta(cache)
     layers, apply = _layers_of(p, cfg)
@@ -378,8 +439,7 @@ def _train_forward(p, batch, cfg, policy):
         for k in ("embed", "lm_head", "final_norm"):
             if k in p:
                 p[k] = quantize_tree(p[k], policy, k)
-    x = L.embed(p["embed"], batch["tokens"], torch_dtype(cfg.dtype))
-    positions = batch.get("positions")
+    x, positions = _inputs_to_embeds(p, batch, cfg, torch_dtype(cfg.dtype))
     kv_mask = batch.get("kv_mask")
     use_moe = cfg.family == "moe"
 
@@ -402,9 +462,17 @@ def lm_decode(p, tokens, cfg, cache, pos: int, pad=None):
     updated in place (slot ``pos`` of every attention layer, the whole
     state of every recurrent one) and returned.  A PAGED cache (pool
     leaves plus a top-level ``page_table`` and ``positions``) decodes
-    each request at its own position; ``pos`` is then ignored."""
+    each request at its own position; ``pos`` is then ignored.  An audio
+    config embeds its code through the transposed ``lm_head`` (a packed
+    head decoded whole by ``ops.dequant``, the kernel on the card)."""
     _check_family(cfg)
-    x = L.embed(p["embed"], tokens, torch_dtype(cfg.dtype))
+    dtype = torch_dtype(cfg.dtype)
+    if cfg.frontend == "audio":
+        w = p["lm_head"]["w"]
+        w = dequant(w, dtype) if isinstance(w, PackedTensor) else w.to(dtype)
+        x = w.T[tokens[..., 0]][:, None]
+    else:
+        x = L.embed(p["embed"], tokens, dtype)
     layers_cache, meta = _pop_paged_meta(cache)
     layers, apply = _layers_of(p, cfg)
     for i in range(_n_layers(layers)):

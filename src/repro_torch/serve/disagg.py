@@ -431,6 +431,11 @@ class DisaggEngine:
 
     def __post_init__(self):
         from ..kernels.flash_decode import default_kv_block
+        if self.cfg.frontend != "none":
+            raise ValueError(
+                "DisaggEngine serves token prompts; vision/audio "
+                "frontends need per-request frame/patch embeddings the "
+                "request queue does not carry")
         kinds = PagedKVPool.page_kinds(self.cfg)
         self.prefill_device = resolve_device(self.prefill_device)
         self.decode_device = resolve_device(self.decode_device)

@@ -115,6 +115,8 @@ def _serving_params(params, cfg: ModelConfig,
     params = _to_device(params, device)
     if policy is not None:
         params = zoo.pack_params(params, policy)
+    if "embed" not in params:        # an audio config reads out lm_head
+        return params
     return dict(params, embed={
         "table": params["embed"]["table"].to(torch_dtype(cfg.dtype))})
 
@@ -169,7 +171,8 @@ class ServeEngine:
         batch = {"tokens": tokens}
         pad = None
         if lengths is not None:
-            if self.cfg.family not in ("dense", "moe"):
+            if self.cfg.family not in ("dense", "moe") or \
+                    self.cfg.rope_kind != "default":
                 raise ValueError(
                     "ragged prompts need a pure-attention family with "
                     "default RoPE (SSM state would still absorb pads)")
@@ -677,6 +680,11 @@ class ContinuousEngine(_ChunkPrefillMixin):
 
     def __post_init__(self):
         from ..kernels.flash_decode import default_kv_block
+        if self.cfg.frontend != "none":
+            raise ValueError(
+                "ContinuousEngine serves token prompts; vision/audio "
+                "frontends need per-request frame/patch embeddings the "
+                "request queue does not carry")
         kinds = PagedKVPool.page_kinds(self.cfg)
         self.device = resolve_device(self.device)
         self.params = _serving_params(self.params, self.cfg, self.policy,

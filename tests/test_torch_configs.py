@@ -1,14 +1,18 @@
-"""The port's config registry against the JAX package's: every
-registered copy, and its ``.reduced()``, equals the reference's config
-field for field, with the same derived properties; the port's
-``RunConfig`` copy has the reference's fields and defaults."""
+"""The port's config registry against the JAX package's: all ten
+architectures, each copy and its ``.reduced()`` equal to the reference's
+config field for field, with the same derived properties and analytic
+``param_count``; ``ARCH_IDS`` in the reference's order, ``SHAPES``,
+``get_shape`` and the ``all_cells()`` grid; the port's ``RunConfig``
+copy has the reference's fields and defaults."""
 
 import dataclasses
 
 import pytest
 
+import repro.configs as jax_configs
 from repro.configs import get_config as jax_get_config
 from repro.configs.base import RunConfig as JaxRunConfig
+from repro_torch import configs
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import RunConfig
 
@@ -24,8 +28,24 @@ def test_config_equals_reference(arch, reduced):
     if reduced:
         got, want = got.reduced(), want.reduced()
     assert _fields(got) == _fields(want)
-    assert (got.resolved_head_dim, got.n_attn_layers) == \
-        (want.resolved_head_dim, want.n_attn_layers)
+    assert (got.resolved_head_dim, got.n_attn_layers, got.param_count()) == \
+        (want.resolved_head_dim, want.n_attn_layers, want.param_count())
+
+
+def test_registry_order_shapes_and_cells_equal_reference():
+    assert configs.ARCH_IDS == jax_configs.ARCH_IDS
+    assert len(configs.ARCH_IDS) == 10
+    assert list(ARCHS) == list(jax_configs.ARCHS)
+    assert {k: _fields(v) for k, v in configs.SHAPES.items()} == \
+        {k: _fields(v) for k, v in jax_configs.SHAPES.items()}
+    for name in configs.SHAPES:
+        assert _fields(configs.get_shape(name)) == \
+            _fields(jax_configs.get_shape(name))
+    got = [(a, s, _fields(c), _fields(sh), ok)
+           for a, s, c, sh, ok in configs.all_cells()]
+    want = [(a, s, _fields(c), _fields(sh), ok)
+            for a, s, c, sh, ok in jax_configs.all_cells()]
+    assert got == want and len(got) == 40
 
 
 def test_registry_holds_the_served_families():
