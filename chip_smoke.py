@@ -138,6 +138,20 @@ and, for LM training:
       on the reduced float32 config on the card and on the CPU (losses
       within 1e-4 with f32 moments, 1e-3 with posit8 moments and
       compression);
+  7b. rwkv6-1.6b at full size (24 layers, d 2048, d_ff 7168, vocab
+      65536) trains with phase 7's feature set (mixed QAT, posit8
+      compression and moments, remat "full", the scans checkpointed per
+      64-token chunk), batch 8 x 256, microbatch 2, 6 steps over the
+      reduced vocab's ids: every loss finite, the last below the first;
+      ms per step, launches and busy share of one profiled step, peak
+      memory; then phase 7's three reduced steps, card against CPU, for
+      rwkv6 and jamba;
+  7c. the multi-device plane at world size 1: an NCCL group of one rank
+      and ``make_host_mesh(1, 1)`` on the card; two sharded all-features
+      steps of reduced float32 qwen2 and rwkv6 bitwise equal to the
+      unsharded step (metrics and every state leaf); a checkpoint saved
+      from the mesh restored bitwise on the mesh and unsharded;
+      ``pipeline_apply`` at one stage equal to the stage;
 
 and, for the other five architectures (weights drawn and packed layer by
 layer on the card, ``paper_mixed``, posit8 KV):
@@ -664,20 +678,30 @@ def phase_serve(summary, fails) -> None:
     profile_decode(eng, toks, per_tok_ms)
 
 
-def _profile(fn):
+def _profile(fn, cpu: bool = True):
     """(wall ms, {kernel name: (device ms, calls)}, {op: host ms}) of one
-    call of ``fn`` under torch.profiler."""
+    call of ``fn`` under torch.profiler (``cpu=False``: device activity
+    only, for a step of ~10^5-10^6 launches; the host dict is then
+    empty)."""
     import warnings
     from torch.profiler import ProfilerActivity, profile
     warnings.filterwarnings("ignore", message=".*Profiler clears events.*")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu +
+                 [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     dev, host = {}, {}
+    if not cpu:
+        # the raw device events: ``key_averages`` parses every event in
+        # Python (~70 s for 10^6 of them)
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA:
+                ms, n = dev.get(e.name(), (0.0, 0))
+                dev[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+        return wall, dev, host
     for ev in prof.key_averages():
         d = getattr(ev, "self_device_time_total", None)
         if d is None:
@@ -2550,7 +2574,7 @@ def quickstart(fails, cfg, device="cuda", seq=256, batch=16, steps=20,
         if i == profile_at:
             box = {}
             wall, dev, _ = _profile(lambda: box.update(r=step(state, b)))
-            state, m = box["r"]
+            state, m = box.pop("r")   # kept in the box, it outlives its step
             out["profile"] = (wall, dev)
         else:
             state, m = step(state, b)
@@ -2691,8 +2715,18 @@ def phase_train(summary, fails) -> None:
     log("[train] summary " + json.dumps(
         {k: v for k, v in out.items() if k not in ("losses", "step_ms")}))
 
-    small = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
-                                dtype="float32")
+    _card_vs_cpu_steps(fails, dataclasses.replace(
+        get_config("qwen2-0.5b").reduced(), dtype="float32"), "train")
+
+
+def _card_vs_cpu_steps(fails, small, tag) -> None:
+    """Three steps of the all-features train step (mixed QAT, microbatch
+    2) on ``small`` on the card and on the CPU from the same weights and
+    batches: f32 moments within ``ACC_REL``, posit8 moments and
+    compression within ``TRAIN_REL``."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.train.loop import TrainState, build_train_step, init_state
     for kw, tol in ((dict(), ACC_REL),
                     (dict(opt_state_dtype="posit8",
                           grad_compression="posit8"), TRAIN_REL)):
@@ -2714,13 +2748,193 @@ def phase_train(summary, fails) -> None:
             losses[dev] = np.array(ls)
         rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"])
                            / np.abs(losses["cpu"])))
-        log(f"[train] card vs CPU, reduced float32, mixed QAT, microbatch "
-            f"2, moments {run.opt_state_dtype}, compression "
+        log(f"[{tag}] card vs CPU, reduced float32 {small.name}, mixed QAT, "
+            f"microbatch 2, moments {run.opt_state_dtype}, compression "
             f"{run.grad_compression}: losses cuda {losses['cuda'].tolist()} "
             f"cpu {losses['cpu'].tolist()}, max rel diff {rel:.3e} (tol {tol})")
-        if not rel <= tol:
-            fails.append(f"train: card vs CPU losses differ by {rel:.3e} "
-                         f"({run.opt_state_dtype}, {run.grad_compression})")
+        if not (np.isfinite(losses["cuda"]).all() and rel <= tol):
+            fails.append(f"{tag}: card vs CPU losses of {small.name} differ "
+                         f"by {rel:.3e} ({run.opt_state_dtype}, "
+                         f"{run.grad_compression})")
+
+
+RWKV_TRAIN_STEPS = 6
+RWKV_PROFILE_AT = 3
+
+
+def phase_train_rwkv(summary, fails) -> None:
+    """Phase 7b: rwkv6-1.6b at full size trains (phase 7's feature set:
+    mixed QAT, posit8 compression and moments, remat "full", the scans
+    checkpointed per 64-token chunk; batch 8 x 256, microbatch 2, 6 steps
+    over the reduced vocab's ids), one step profiled; then three steps of
+    reduced float32 rwkv6 and jamba on the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.train.loop import build_train_step, init_state
+    cfg = get_config("rwkv6-1.6b")
+    data_vocab = cfg.reduced().vocab       # as phase 7, for its reason
+    batch, seq = 8, 256
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = RunConfig(arch=cfg.name, steps=RWKV_TRAIN_STEPS, lr=3e-3,
+                    warmup_steps=2, microbatch=2, qat=True,
+                    precision_policy="mixed", grad_compression="posit8",
+                    opt_state_dtype="posit8", checkpoint_every=0)
+    log(f"[train-rwkv] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, remat {cfg.remat!r}, "
+        f"ssm_chunk {cfg.ssm_chunk}; batch {batch} x {seq}, microbatch "
+        f"{run.microbatch}, token stream over ids 0..{data_vocab - 1}")
+    t0 = time.perf_counter()
+    state = init_state(cfg, run, torch.Generator("cuda").manual_seed(0))
+    step = build_train_step(cfg, run)
+    data = TokenStream(vocab=data_vocab, seq_len=seq, global_batch=batch,
+                       seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = _n_params(state.params)
+    log(f"[train-rwkv] init {time.perf_counter() - t0:.1f} s, {n_params} "
+        f"parameters, {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"held")
+    out, losses, step_ms, peaks = {}, [], [], []
+    for i in range(1, RWKV_TRAIN_STEPS + 1):
+        b = data.next_batch()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        if i == RWKV_PROFILE_AT:
+            box = {}
+            wall, dev, _ = _profile(lambda: box.update(r=step(state, b)),
+                                    cpu=False)
+            state, m = box.pop("r")   # kept in the box, it outlives its step
+            busy = sum(v[0] for v in dev.values())
+            n = sum(v[1] for v in dev.values())
+            out.update(profiled_wall_ms=wall, busy_ms=busy,
+                       busy_share=busy / wall, launches_per_step=n)
+            log(f"[train-rwkv] profiled step {i}: wall {wall:.1f} ms, device "
+                f"busy {busy:.1f} ms, busy share {busy / wall:.3f}, kernel "
+                f"launches {n}")
+            for k, (ms, calls) in sorted(dev.items(),
+                                         key=lambda kv: -kv[1][0])[:8]:
+                log(f"[train-rwkv]   device {ms:8.3f} ms  {calls:7d} calls  "
+                    f"{k[:90]}")
+        else:
+            state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    timed = [t for i, t in enumerate(step_ms, 1)
+             if i > 1 and i != RWKV_PROFILE_AT]
+    out.update(ms_per_step=float(np.median(timed)), first_step_ms=step_ms[0],
+               peak_gib=max(peaks), losses=losses)
+    log(f"[train-rwkv] {RWKV_TRAIN_STEPS} steps: losses "
+        f"{[round(x, 4) for x in losses]}; median {out['ms_per_step']:.1f} "
+        f"ms/step (first {step_ms[0]:.1f} ms; each {[round(t) for t in step_ms]}"
+        f"), peak memory {out['peak_gib']:.2f} GiB (each step "
+        f"{[round(x, 2) for x in peaks]}); {card()}")
+    log("[train-rwkv] summary " + json.dumps(out))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fails.append(f"train-rwkv: losses {losses} (finite and falling "
+                     f"wanted)")
+    del state, step, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in ("rwkv6-1.6b", "jamba-v0.1-52b"):
+        _card_vs_cpu_steps(fails, dataclasses.replace(
+            get_config(arch).reduced(), dtype="float32"), "train-rwkv")
+
+
+def phase_mesh(fails) -> None:
+    """Phase 7c: the multi-device plane at world size 1 on the card: an
+    NCCL group of one rank (a ``FileStore`` in a temporary directory) and
+    ``make_host_mesh(1, 1)``; two steps of the sharded all-features step
+    of reduced float32 qwen2 and rwkv6 bitwise equal to the unsharded
+    step; ``pipeline_apply`` at one stage equal to the stage; a checkpoint
+    saved from the mesh restored bitwise unsharded and on the mesh."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.policy import flatten_with_paths
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.parallel.sharding import param_sharding_tree, whole
+    from repro_torch.train.loop import TrainState, build_train_step, init_state
+
+    def diff(a, b):
+        fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+        if [p for p, _ in fa] != [p for p, _ in fb]:
+            return ["<paths>"]
+        return [p for (p, x), (_, y) in zip(fa, fb)
+                if not (whole(x).dtype == whole(y).dtype
+                        and torch.equal(whole(x), whole(y)))]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(1, 1)
+            log(f"[mesh] NCCL group of 1, mesh {mesh}")
+            for arch in ("qwen2-0.5b", "rwkv6-1.6b"):
+                small = dataclasses.replace(get_config(arch).reduced(),
+                                            dtype="float32")
+                run = RunConfig(arch=arch, steps=2, lr=3e-3, warmup_steps=1,
+                                microbatch=2, qat=True,
+                                precision_policy="mixed",
+                                grad_compression="posit8",
+                                opt_state_dtype="posit8", checkpoint_every=0)
+                st0 = init_state(small, run,
+                                 torch.Generator("cuda").manual_seed(0))
+                step_fn, shard_state = build_train_step(small, run, mesh=mesh)
+                ref_step = build_train_step(small, run)
+                st, ref = shard_state(st0), st0
+                data = TokenStream(vocab=small.vocab, seq_len=64,
+                                   global_batch=8, device="cuda")
+                same = True
+                for _ in range(2):
+                    b = data.next_batch()
+                    st, m = step_fn(st, b)
+                    ref, rm = ref_step(ref, b)
+                    same &= all(torch.equal(m[k], rm[k])
+                                for k in ("loss", "ce", "aux", "grad_norm"))
+                bad = [f"{n}/{p}" for n in ("params", "opt_state",
+                                            "residuals")
+                       for p in diff(getattr(st, n), getattr(ref, n))]
+                log(f"[mesh] {arch} sharded step x2: metrics bitwise {same}, "
+                    f"state leaves differing {bad}; loss "
+                    f"{float(m['loss']):.6f}")
+                if not same or bad:
+                    fails.append(f"mesh: {arch} sharded step differs from the "
+                                 f"unsharded one ({bad})")
+            # checkpoint from the mesh (rwkv6's state), restored both ways
+            ck = os.path.join(tmp, "ck")
+            save_checkpoint(ck, 2, st)
+            tmpl = init_state(small, run, torch.Generator("cuda").manual_seed(1))
+            sh = TrainState(None, *(param_sharding_tree(mesh, t) for t in (
+                tmpl.params, tmpl.opt_state, tmpl.residuals)))
+            on_mesh, _, _ = restore_checkpoint(ck, tmpl, shardings=sh)
+            plain, _, _ = restore_checkpoint(ck, tmpl)
+            bad = diff(on_mesh, st) + diff(plain, st)
+            log(f"[mesh] checkpoint restored on the mesh and unsharded: "
+                f"leaves differing {bad}")
+            if bad:
+                fails.append(f"mesh: restored checkpoint differs ({bad})")
+            # the pipeline at one stage
+            smesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+            gen = torch.Generator("cuda").manual_seed(3)
+            w = torch.randn(1, 64, 64, device="cuda", generator=gen) * 0.3
+            x = torch.randn(8, 64, device="cuda", generator=gen)
+            got = pipeline_apply(smesh, "stage",
+                                 lambda p, v: torch.tanh(v @ p["w"]),
+                                 {"w": w}, x, 4)
+            ok = torch.equal(got, torch.tanh(x @ w[0]))
+            log(f"[mesh] pipeline_apply at one stage == the stage: {ok}")
+            if not ok:
+                fails.append("mesh: one-stage pipeline differs")
+        finally:
+            dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -3305,7 +3519,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_train(summary, fails)
     log(f"[time] quickstart at full width (7) {time.perf_counter() - t0:.1f} "
-        f"s; total {time.perf_counter() - t_start:.1f} s")
+        f"s")
+    t0 = time.perf_counter()
+    phase_train_rwkv(summary, fails)
+    log(f"[time] rwkv6-1.6b training (7b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_mesh(fails)
+    log(f"[time] mesh at world size 1 (7c) {time.perf_counter() - t0:.1f} s; "
+        f"total {time.perf_counter() - t_start:.1f} s")
     if fails:
         for f in fails:
             print(f"FAIL {f}", file=sys.stderr)

@@ -24,7 +24,14 @@ them back).  Guarantees:
 before ``save`` returns and writes it on a background thread, whose
 error surfaces on the next ``save`` or ``wait``.  ``restore_checkpoint``
 puts each leaf on ``device`` (None: the device of the template's leaf),
-where the reference takes shardings.
+or, given ``shardings`` (a tree of ``sharding.NamedSharding``), lays it
+out as a DTensor on their mesh: a checkpoint saved from one mesh
+restores onto another (elastic restore) or unsharded.
+
+A tree with DTensor leaves (the sharded train state) is saved by every
+rank of its mesh together: each leaf is gathered whole, rank 0 writes,
+and the ranks meet at a barrier (``CheckpointManager.wait`` for an
+async save), so the format on disk does not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed
 
 from ..core.formats import format_by_name
 from ..core.policy import flatten_with_paths
@@ -81,8 +89,26 @@ def _to_numpy(leaf, words: bool):
     return arr, str(arr.dtype)
 
 
+def _is_sharded(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor) for _, t in flatten_with_paths(tree))
+
+
 def save_checkpoint(directory: str, step: int, tree,
                     extra: Optional[Dict] = None, keep: int = 3) -> str:
+    if not _is_sharded(tree):
+        return _write(directory, step, tree, extra, keep)
+    host = _host_copy(tree)                  # every rank gathers
+    try:
+        if torch.distributed.get_rank() == 0:
+            _write(directory, step, host, extra, keep)
+    finally:
+        torch.distributed.barrier()
+    return os.path.join(directory, f"step_{step:08d}")
+
+
+def _write(directory: str, step: int, tree, extra: Optional[Dict],
+           keep: int) -> str:
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -143,10 +169,15 @@ def _from_numpy(arr: np.ndarray, dtype_str: str) -> torch.Tensor:
 
 
 def restore_checkpoint(directory: str, template, step: Optional[int] = None,
-                       device=None):
+                       device=None, shardings=None):
     """Restore into the structure of ``template`` (nested dicts, lists,
-    PackedTensors, dataclasses such as ``TrainState``).  Returns (tree,
-    extra, step)."""
+    PackedTensors, dataclasses such as ``TrainState``).  ``shardings``:
+    an optional matching tree of ``NamedSharding`` (None leaves, or no
+    tree, restore whole); each leaf is laid out on its mesh's device.
+    Returns (tree, extra, step)."""
+    from ..parallel.sharding import place
+    shard_of = dict(flatten_with_paths(shardings)) \
+        if shardings is not None else {}
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -163,41 +194,54 @@ def restore_checkpoint(directory: str, template, step: Optional[int] = None,
         if int(arr.nbytes) != meta["nbytes"]:
             raise IOError(f"corrupted checkpoint leaf {path}: "
                           f"{arr.nbytes} != {meta['nbytes']}")
-        dev = device if device is not None else getattr(tleaf, "device",
-                                                        "cpu")
-        restored[path] = _from_numpy(arr, meta["dtype"]).to(dev)
+        sh = shard_of.get(path)
+        if sh is not None:
+            dev = sh.mesh.device_type
+        elif device is not None:
+            dev = device
+        else:
+            dev = getattr(tleaf, "device", "cpu")
+        t = _from_numpy(arr, meta["dtype"]).to(dev)
+        restored[path] = place(t, sh) if sh is not None else t
     packed_meta = manifest.get("packed", {})
 
-    def rebuild(node, path=""):
-        if isinstance(node, dict):
-            return {k: rebuild(v, f"{path}/{k}" if path else k)
-                    for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(rebuild(v, f"{path}/{i}" if path else str(i))
-                              for i, v in enumerate(node))
-        if node is None:
-            return None
-        if _is_packed(node):
-            # the saved layout wins over the template's
-            new = dataclasses.replace(node,
-                                      words=restored[f"{path}/words"],
-                                      scales=restored[f"{path}/scales"],
-                                      mask=restored[f"{path}/mask"])
-            meta = packed_meta.get(path)
-            if meta is not None:
-                new = dataclasses.replace(
-                    new, spec=format_by_name(meta["spec"]),
-                    shape=tuple(meta["shape"]), group=meta.get("group"),
-                    version=meta.get("version", 1))
-            return new
-        if dataclasses.is_dataclass(node) and not isinstance(node, type):
-            return type(node)(**{
-                f.name: rebuild(getattr(node, f.name),
-                                f"{path}/{f.name}" if path else f.name)
-                for f in dataclasses.fields(node)})
-        return restored[path]
+    return (_rebuild(template, "", restored, packed_meta),
+            manifest["extra"], step)
 
-    return rebuild(template), manifest["extra"], step
+
+def _rebuild(node, path: str, restored, packed_meta):
+    """``node``'s structure with the restored leaves (a module-level walk:
+    a nested recursive closure would keep ``restored`` alive until the
+    cyclic garbage collector runs)."""
+    if isinstance(node, dict):
+        return {k: _rebuild(v, f"{path}/{k}" if path else k, restored,
+                            packed_meta) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_rebuild(v, f"{path}/{i}" if path else str(i),
+                                   restored, packed_meta)
+                          for i, v in enumerate(node))
+    if node is None:
+        return None
+    if _is_packed(node):
+        # the saved layout wins over the template's
+        new = dataclasses.replace(node,
+                                  words=restored[f"{path}/words"],
+                                  scales=restored[f"{path}/scales"],
+                                  mask=restored[f"{path}/mask"])
+        meta = packed_meta.get(path)
+        if meta is not None:
+            new = dataclasses.replace(
+                new, spec=format_by_name(meta["spec"]),
+                shape=tuple(meta["shape"]), group=meta.get("group"),
+                version=meta.get("version", 1))
+        return new
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return type(node)(**{
+            f.name: _rebuild(getattr(node, f.name),
+                             f"{path}/{f.name}" if path else f.name,
+                             restored, packed_meta)
+            for f in dataclasses.fields(node)})
+    return restored[path]
 
 
 def _host_copy(node):
@@ -209,6 +253,9 @@ def _host_copy(node):
     if isinstance(node, (list, tuple)):
         return type(node)(_host_copy(v) for v in node)
     if isinstance(node, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+        if isinstance(node, DTensor):
+            return node.detach().full_tensor().to("cpu", copy=True)
         return node.detach().to("cpu", copy=True)
     if isinstance(node, np.ndarray):
         return node.copy()
@@ -232,30 +279,39 @@ class CheckpointManager:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._sharded = False      # the last save was of a sharded tree
 
     def save(self, step: int, tree, extra: Optional[Dict] = None) -> None:
         self.wait()
-        host_tree = _host_copy(tree)                # snapshot now
+        self._sharded = _is_sharded(tree)
+        host_tree = _host_copy(tree)   # snapshot now (sharded leaves whole)
         extra = json.loads(json.dumps(extra or {}))
-        if not self.async_save:
-            save_checkpoint(self.directory, step, host_tree, extra, self.keep)
-            return
 
         def work():
             try:
-                save_checkpoint(self.directory, step, host_tree, extra,
-                                self.keep)
+                _write(self.directory, step, host_tree, extra, self.keep)
             except Exception as e:  # surfaced on the next save / wait
                 self._error = e
 
-        self._thread = threading.Thread(target=work, daemon=True)
-        self._thread.start()
+        if self._sharded and torch.distributed.get_rank() != 0:
+            pass                       # rank 0 writes a sharded tree
+        elif self.async_save:
+            self._thread = threading.Thread(target=work, daemon=True)
+            self._thread.start()
+        else:
+            work()
+        if not self.async_save:
+            self.wait()
 
     def wait(self) -> None:
-        """Join the writer; raise its error, if it had one."""
+        """Join the writer (after a sharded save, every rank meets the
+        writer here); raise its error, if it had one."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            self._sharded = False
+            torch.distributed.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -20,50 +20,58 @@ from .formats import FormatSpec
 __all__ = ["PrecisionPolicy", "flatten_with_paths", "tree_from_paths"]
 
 
+# The tree walks below are module-level functions, not nested closures: a
+# nested recursive function is a reference cycle (it holds its own cell),
+# which would keep the tensors it captured alive until the cyclic garbage
+# collector runs -- a train step's whole gradient tree, for one.
+
+def _flatten_into(node, path: str, keep_packed: bool, leaves: list) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _flatten_into(node[k], f"{path}/{k}" if path else str(k),
+                          keep_packed, leaves)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _flatten_into(v, f"{path}/{i}" if path else str(i), keep_packed,
+                          leaves)
+    elif node is None:
+        return
+    elif hasattr(node, "words") and hasattr(node, "scales"):
+        if keep_packed:
+            leaves.append((path, node))
+        else:
+            _flatten_into({"words": node.words, "scales": node.scales,
+                           "mask": node.mask}, path, keep_packed, leaves)
+    elif dataclasses.is_dataclass(node) and not isinstance(node, type):
+        _flatten_into({f.name: getattr(node, f.name)
+                       for f in dataclasses.fields(node)}, path, keep_packed,
+                      leaves)
+    else:
+        leaves.append((path, node))
+
+
 def flatten_with_paths(tree, keep_packed: bool = False
                        ) -> List[Tuple[str, object]]:
     """Flatten a nested dict/list tree to (slash-path, leaf), dict keys
     sorted.  A packed tensor flattens into its words/scales/mask
     sub-leaves, unless ``keep_packed`` (then it is one leaf); any other
     dataclass (a ``TrainState``) flattens as the dict of its fields."""
-    leaves = []
-
-    def rec(node, path):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                rec(node[k], f"{path}/{k}" if path else str(k))
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                rec(v, f"{path}/{i}" if path else str(i))
-        elif node is None:
-            return
-        elif hasattr(node, "words") and hasattr(node, "scales"):
-            if keep_packed:
-                leaves.append((path, node))
-            else:
-                rec({"words": node.words, "scales": node.scales,
-                     "mask": node.mask}, path)
-        elif dataclasses.is_dataclass(node) and not isinstance(node, type):
-            rec({f.name: getattr(node, f.name)
-                 for f in dataclasses.fields(node)}, path)
-        else:
-            leaves.append((path, node))
-
-    rec(tree, "")
+    leaves: list = []
+    _flatten_into(tree, "", keep_packed, leaves)
     return leaves
+
+
+def _from_paths(node, path: str, leaves):
+    if isinstance(node, dict):
+        return {k: _from_paths(v, f"{path}/{k}" if path else str(k), leaves)
+                for k, v in node.items()}
+    return None if node is None else leaves[path]
 
 
 def tree_from_paths(template, leaves):
     """A nested dict of ``template``'s structure whose leaf at each
     ``flatten_with_paths`` path is ``leaves[path]`` (None stays None)."""
-
-    def rec(node, path):
-        if isinstance(node, dict):
-            return {k: rec(v, f"{path}/{k}" if path else str(k))
-                    for k, v in node.items()}
-        return None if node is None else leaves[path]
-
-    return rec(template, "")
+    return _from_paths(template, "", leaves)
 
 
 @dataclasses.dataclass

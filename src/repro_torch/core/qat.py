@@ -18,21 +18,22 @@ def quantize_tree(tree, policy: Optional[PrecisionPolicy], prefix: str = ""):
     ``prefix`` lets a subtree resolve against full-tree patterns."""
     if policy is None:
         return tree
+    return _quantize(tree, prefix, policy)
 
-    def rec(node, path):
-        if isinstance(node, dict):
-            return {k: rec(v, f"{path}/{k}" if path else k)
-                    for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(rec(v, f"{path}/{i}" if path else str(i))
-                              for i, v in enumerate(node))
-        if node is None:
-            return None
-        if getattr(node, "ndim", 0) < 2:
-            return node
-        spec = policy.format_for(path)
-        if spec.kind == "native":
-            return node
-        return quant.fake_quant(spec, node, group_size=policy.group_for(path))
 
-    return rec(tree, prefix)
+def _quantize(node, path: str, policy: PrecisionPolicy):
+    # module-level, not a nested closure: see ``core.policy``'s tree walks
+    if isinstance(node, dict):
+        return {k: _quantize(v, f"{path}/{k}" if path else k, policy)
+                for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_quantize(v, f"{path}/{i}" if path else str(i),
+                                    policy) for i, v in enumerate(node))
+    if node is None:
+        return None
+    if getattr(node, "ndim", 0) < 2:
+        return node
+    spec = policy.format_for(path)
+    if spec.kind == "native":
+        return node
+    return quant.fake_quant(spec, node, group_size=policy.group_for(path))

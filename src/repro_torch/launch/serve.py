@@ -58,6 +58,7 @@ from ..configs import get_config
 from ..core.policy import PrecisionPolicy
 from ..models import zoo
 from ..obs import TraceRecorder
+from ..parallel.sharding import split_devices
 from ..serve.disagg import DisaggEngine
 from ..serve.engine import ContinuousEngine, ServeEngine
 
@@ -101,9 +102,13 @@ def _continuous(args, cfg, params, policy, device) -> None:
                   prefix_cache=args.prefix_cache,
                   decode_steps=args.decode_steps, trace=rec)
     if args.disagg:
+        # prefill and decode cards from the cards present (one card: both
+        # workers share it), as the reference splits its devices
+        pdev, ddev = split_devices([device] if device.type == "cpu"
+                                   else None)
         eng = DisaggEngine(cfg, params, prefill_pages=args.n_pages,
-                           decode_pages=args.n_pages, prefill_device=device,
-                           decode_device=device, **common)
+                           decode_pages=args.n_pages, prefill_device=pdev[0],
+                           decode_device=ddev[0], **common)
     else:
         eng = ContinuousEngine(cfg, params, n_pages=args.n_pages,
                                device=device, **common)

@@ -14,8 +14,7 @@ checkpoints every ``--checkpoint-every`` steps into ``--checkpoint-dir``
 and resumes from the newest checkpoint there.
 
 It runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path
-(use ``--reduced`` there).  Dense and MoE families train; the recurrent
-and hybrid ones raise.
+(use ``--reduced`` there).  Every family trains.
 """
 
 from __future__ import annotations

@@ -20,6 +20,11 @@ then that expert's products
 (``layers.rowstable_matmul``), so at most one decoded slice of a leaf is
 live.  Every expert runs, empty or not (skipping one would need the
 host to read the counts).
+
+In the sharded train step each rank routes its own rows of the batch:
+dispatch groups and capacity count that rank's tokens (so the step
+equals the unsharded one where no pair is dropped), while the
+load-balance loss is the whole batch's (``sharding.batch_sum``).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ops import PackedTensor, dequant, to_dense
+from ..parallel.sharding import batch_ranks, batch_sum
 from . import layers as L
 
 __all__ = ["moe_init", "moe_apply"]
@@ -142,10 +148,14 @@ def moe_apply(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
 
     # load-balance aux (switch-style): E * sum_e f_e * P_e, f_e the mean
     # count of picks per token (a scatter: one_hot would read the ids back)
+    # (inside a mesh both means run over the whole batch's tokens)
     picks = torch.zeros(e, device=x.device).scatter_add_(
         0, top_i.reshape(-1), torch.ones(top_i.numel(), device=x.device))
-    f_e = picks / (g * ng)
-    aux = e * torch.sum(f_e * probs.mean((0, 1)))
+    n_all = g * ng * batch_ranks()
+    f_e = batch_sum(picks) / n_all
+    p_e = probs.mean((0, 1)) if n_all == g * ng else \
+        batch_sum(probs.sum((0, 1))) / n_all
+    aux = e * torch.sum(f_e * p_e)
 
     nk = ng * k
     cap = _capacity(nk, e, cfg.capacity_factor)

@@ -1,10 +1,14 @@
 """Attention-free sequence mixers: Mamba (for Jamba) and RWKV-6 "Finch"
 (the counterpart of ``repro.models.ssm``).
 
-The reference scans in chunks (an outer ``lax.scan`` over sequence chunks
-around an inner step scan); the chunking only nests the loop, so the
-port runs one flat Python loop over tokens and reaches the same state in
-the same order of operations.  Decode is the same step on one token.
+Both scans run token by token from the host.  In training (grad
+enabled, ``cfg.remat != "none"``) they split the tokens as the reference
+does, into ``max(S // cfg.ssm_chunk, 1)`` chunks, and run each chunk
+under a checkpoint whose boundary is the recurrent state, so the
+backward keeps one chunk's steps at a time (the reference's
+``jax.checkpoint`` of each chunk).  The steps and their order are the
+same either way, so the forward is bitwise the flat loop's.  Decode is
+the same step on one token.
 
 Every product inside a step is written as a broadcast multiply and a sum
 over one axis (no batched matmul): the sum's order then depends on the
@@ -41,6 +45,39 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     switches to ``x`` above 20), computed in f32 and rounded once."""
     xf = x.float()
     return torch.logaddexp(xf, torch.zeros_like(xf)).to(x.dtype)
+
+
+def _scan(step, state, seqs, consts, cfg):
+    """``step(state, *token_slices, *consts) -> (state, y)`` over the S
+    tokens of ``seqs`` (each (B, S, ...)) from ``state``; returns (final
+    state, ys (B, S, ...)).  When the scan is differentiated under
+    ``cfg.remat != "none"``, each of the reference's chunks runs under a
+    checkpoint (the last chunk takes any tokens the split leaves)."""
+
+    def run(state, *xs):
+        # tokens as views cut once (``unbind``): the backward stacks each
+        # input's token grads in one copy
+        ys = []
+        for token in zip(*(x.unbind(1) for x in xs)):
+            state, y = step(state, *token, *consts)
+            ys.append(y)
+        return state, torch.stack(ys, 1)
+
+    tensors = (state, *seqs, *consts)
+    if cfg.remat == "none" or not torch.is_grad_enabled() or \
+            not any(t.requires_grad for t in tensors):
+        return run(state, *seqs)
+    from torch.utils.checkpoint import checkpoint
+    s = seqs[0].shape[1]
+    n = max(s // cfg.ssm_chunk, 1)
+    c = s // n
+    ys = []
+    for i in range(n):
+        hi = s if i == n - 1 else (i + 1) * c
+        state, y = checkpoint(run, state, *(x[:, i * c:hi] for x in seqs),
+                              use_reentrant=False)
+        ys.append(y)
+    return state, torch.cat(ys, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -125,13 +162,9 @@ def mamba_apply(p, x, cfg, state=None):
         state = mamba_state_init(cfg, x.shape[0], x.device)
     xin, z, dt, bmat, cmat, a, new_conv = _mamba_core(p, x, cfg,
                                                       state["conv"])
-    xf = xin.float()
-    h, ys = state["h"], []
-    for t in range(x.shape[1]):
-        h, y = _mamba_step(h, dt[:, t], bmat[:, t], cmat[:, t], xf[:, t], a)
-        ys.append(y)
-    return _mamba_out(p, x, torch.stack(ys, 1), xin, z), \
-        {"h": h, "conv": new_conv}
+    h, y = _scan(_mamba_step, state["h"], (dt, bmat, cmat, xin.float()),
+                 (a,), cfg)
+    return _mamba_out(p, x, y, xin, z), {"h": h, "conv": new_conv}
 
 
 def mamba_decode(p, x, cfg, state):
@@ -234,12 +267,9 @@ def rwkv_time_mix(p, x, cfg, state):
     """x (B, S, D) -> (out, new_state)."""
     b, s, d = x.shape
     r, k, v, w, g = _tm_project(p, x, state["tm_xprev"], cfg)
-    st, ys = state["tm_state"], []
-    for t in range(s):
-        st, y = _wkv_step(st, r[:, t], k[:, t], v[:, t], w[:, t],
-                          p["bonus_u"])
-        ys.append(y)
-    y = torch.stack(ys, 1).reshape(b, s, d).to(x.dtype)
+    st, y = _scan(_wkv_step, state["tm_state"], (r, k, v, w),
+                  (p["bonus_u"],), cfg)
+    y = y.reshape(b, s, d).to(x.dtype)
     y = L.rmsnorm(p["ln_x"], y)  # per-channel group norm stand-in
     out = L.dense(p["wo"], y * g)
     new_state = dict(state)

@@ -25,9 +25,10 @@ vision config (qwen2-vl) splices ``patch_embeds`` over its first tokens
 and rotates with M-RoPE over (t, h, w) position streams.
 
 ``lm_apply(mode="train")`` is the differentiable forward of ``lm_loss``
-(dense and MoE families): it builds no cache, fake-quantizes one layer's
-weights at a time under a QAT policy, and recomputes each layer in the
-backward per ``cfg.remat``.
+(every family): it builds no cache, fake-quantizes one layer's (one
+hybrid group's) weights at a time under a QAT policy, and recomputes
+each layer in the backward per ``cfg.remat``; the Mamba and RWKV scans
+inside it checkpoint each ``cfg.ssm_chunk`` chunk.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from .. import resolve_device
 from ..core.formats import torch_dtype
 from ..core.qat import quantize_tree
 from ..kernels.ops import PackedTensor, dequant
+from ..parallel.sharding import batch_sum, gather
 from . import attention as A
 from . import layers as L
 from . import moe as M
@@ -347,7 +349,7 @@ def lm_apply(p, batch, cfg, last_only: bool = False, mode: str = "prefill",
     each layer's weights inside the layer loop, so one layer's quantized
     copy is live at a time; ``cfg.remat`` recomputes each layer in the
     backward (``"full"``), all but its 2-D matmul outputs (``"dots"``), or
-    nothing (``"none"``).  Dense and MoE families only.
+    nothing (``"none"``).
     ``mode="prefill"``: from an empty cache; attention layers return their
     kv ``{"k", "v"}`` (bf16, stacked (L, B, S, Kh, Dh)) and recurrent
     layers their final f32 state.  ``mode="prefill_chunk"``: one chunk at
@@ -428,30 +430,34 @@ def _unstack(tree, n: int):
 
 
 def _train_forward(p, batch, cfg, policy):
-    """(logits (B, S, V), aux) of the differentiable forward."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"training {cfg.name} (family {cfg.family!r}) needs the Mamba / "
-            f"RWKV scans in a differentiable chunked form; the port trains "
-            f"the dense and MoE families so far (ROADMAP Queue 1 item 6b)")
+    """(logits (B, S, V), aux) of the differentiable forward: one layer
+    (a hybrid group) at a time, each under ``_remat``; recurrent layers
+    start from a zero state.  Sharded (DTensor) weights are gathered
+    whole one layer at a time (``sharding.gather``), again in the
+    recompute."""
+    mixer = _family_mixer(cfg)
+    key = "groups" if mixer == "group" else "layers"
+    p = {k: v if k == key else gather(v) for k, v in p.items()}
     if policy is not None:
-        p = dict(p)
         for k in ("embed", "lm_head", "final_norm"):
             if k in p:
                 p[k] = quantize_tree(p[k], policy, k)
     x, positions = _inputs_to_embeds(p, batch, cfg, torch_dtype(cfg.dtype))
     kv_mask = batch.get("kv_mask")
-    use_moe = cfg.family == "moe"
 
     def layer(lp, x):
-        lp = quantize_tree(lp, policy, "layers")
-        x, _, a = _block_apply(lp, x, cfg, "attn", use_moe, positions,
-                               mode="train", kv_mask=kv_mask)
+        lp = quantize_tree(gather(lp), policy, key)
+        if mixer == "group":
+            x, _, a = _group_apply(lp, x, cfg, positions, mode="train",
+                                   kv_mask=kv_mask)
+        else:
+            x, _, a = _block_apply(lp, x, cfg, mixer, cfg.family == "moe",
+                                   positions, mode="train", kv_mask=kv_mask)
         return x, torch.as_tensor(a, dtype=torch.float32, device=x.device)
 
     layer = _remat(layer, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in _unstack(p["layers"], _n_layers(p["layers"])):
+    for lp in _unstack(p[key], _n_layers(p[key])):
         x, a = layer(lp, x)
         aux = aux + a
     return _readout(p, x), aux
@@ -556,12 +562,15 @@ def init_state_cache(cfg, batch: int, device=None):
 def lm_loss(p, batch, cfg, aux_weight: float = 0.01, policy=None):
     """Next-token cross-entropy over the labels >= 0 (log-softmax in f32)
     plus ``aux_weight`` times the MoE load-balance loss.  Returns
-    ``(loss, (ce, aux))``, differentiable in ``p``."""
+    ``(loss, (ce, aux))``, differentiable in ``p``.  Inside a mesh
+    (``sharding.use_mesh``) the batch holds this rank's rows and both
+    terms are the whole batch's."""
     logits, _, aux = lm_apply(p, batch, cfg, mode="train", with_aux=True,
                               policy=policy)
     labels = batch["labels"].long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
-    ce = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    ce = -batch_sum(torch.sum(ll * mask)) / torch.clamp(
+        batch_sum(torch.sum(mask)), min=1.0)
     return ce + aux_weight * aux, (ce, aux)

@@ -24,7 +24,8 @@ from ..core import codec as codec_mod
 from ..core import formats as fmt
 from ..core.policy import flatten_with_paths
 
-__all__ = ["OptConfig", "adamw_init", "adamw_update"]
+__all__ = ["OptConfig", "adamw_init", "adamw_update", "adamw_leaf",
+           "bias_correction", "map_leaves", "unzip3"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,11 +86,11 @@ def _dq_state(x, moment_dtype: str, sqrt_domain: bool = False):
     return out
 
 
-def _map(fn, params, *trees):
+def map_leaves(fn, params, *trees):
     """``fn`` over the parameter leaves, the other trees walked along the
     parameters' structure (a posit8 moment dict is one leaf)."""
     if isinstance(params, dict):
-        return {k: _map(fn, params[k], *(t[k] for t in trees))
+        return {k: map_leaves(fn, params[k], *(t[k] for t in trees))
                 for k in params}
     return fn(params, *trees)
 
@@ -99,8 +100,46 @@ def adamw_init(params, cfg: OptConfig):
         return lambda p: _q_state(torch.zeros_like(p, dtype=torch.float32),
                                   cfg.moment_dtype, sqrt_domain)
     device = flatten_with_paths(params)[0][1].device
-    return {"m": _map(zeros(False), params), "v": _map(zeros(True), params),
+    return {"m": map_leaves(zeros(False), params),
+            "v": map_leaves(zeros(True), params),
             "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def bias_correction(count: torch.Tensor, cfg: OptConfig):
+    """(1 - b1^t, 1 - b2^t) at step ``count``."""
+    c = count.float()
+    return 1.0 - cfg.b1 ** c, 1.0 - cfg.b2 ** c
+
+
+@torch.no_grad()
+def adamw_leaf(p, g, m, v, lr, bc, cfg: OptConfig):
+    """One parameter leaf's step -> (new param, new m, new v); ``bc``
+    from :func:`bias_correction`.  posit8 moment block scales come from
+    the whole leaf, so a sharded step passes whole leaves."""
+    bc1, bc2 = bc
+    g = g.float()
+    m_f = _dq_state(m, cfg.moment_dtype)
+    v_f = _dq_state(v, cfg.moment_dtype, sqrt_domain=True)
+    m_new = cfg.b1 * m_f + (1 - cfg.b1) * g
+    v_new = cfg.b2 * v_f + (1 - cfg.b2) * torch.square(g)
+    step = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+    if p.dim() >= 2:
+        step = step + cfg.weight_decay * p.float()
+    p_new = (p.float() - lr * step).to(p.dtype)
+    return (p_new, _q_state(m_new, cfg.moment_dtype),
+            _q_state(v_new, cfg.moment_dtype, sqrt_domain=True))
+
+
+def unzip3(tree):
+    """A tree of (param, m, v) triples at the parameter leaves -> the
+    three trees."""
+
+    def part(tree, i):
+        if isinstance(tree, dict):
+            return {k: part(v, i) for k, v in tree.items()}
+        return tree[i]
+
+    return part(tree, 0), part(tree, 1), part(tree, 2)
 
 
 @torch.no_grad()
@@ -108,30 +147,8 @@ def adamw_update(params, grads, state, lr, cfg: OptConfig):
     """One AdamW step -> (new params, new state).  Weight decay is
     decoupled and applies to matrices only."""
     count = state["count"] + 1
-    c = count.float()
-    bc1 = 1.0 - cfg.b1 ** c
-    bc2 = 1.0 - cfg.b2 ** c
-
-    def upd(p, g, m, v):
-        g = g.float()
-        m_f = _dq_state(m, cfg.moment_dtype)
-        v_f = _dq_state(v, cfg.moment_dtype, sqrt_domain=True)
-        m_new = cfg.b1 * m_f + (1 - cfg.b1) * g
-        v_new = cfg.b2 * v_f + (1 - cfg.b2) * torch.square(g)
-        step = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
-        if p.dim() >= 2:
-            step = step + cfg.weight_decay * p.float()
-        p_new = (p.float() - lr * step).to(p.dtype)
-        return (p_new, _q_state(m_new, cfg.moment_dtype),
-                _q_state(v_new, cfg.moment_dtype, sqrt_domain=True))
-
-    triples = _map(upd, params, grads, state["m"], state["v"])
-
-    def part(tree, i):
-        """Field ``i`` of the (param, m, v) triples at the leaves."""
-        if isinstance(tree, dict):
-            return {k: part(v, i) for k, v in tree.items()}
-        return tree[i]
-
-    return part(triples, 0), {"m": part(triples, 1), "v": part(triples, 2),
-                              "count": count}
+    bc = bias_correction(count, cfg)
+    new_p, m, v = unzip3(map_leaves(
+        lambda p, g, m, v: adamw_leaf(p, g, m, v, lr, bc, cfg),
+        params, grads, state["m"], state["v"]))
+    return new_p, {"m": m, "v": v, "count": count}

@@ -33,6 +33,16 @@ def _po2_scale(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.round(torch.log2(r)))
 
 
+def _compress(g: torch.Tensor, r=None):
+    """One leaf: (posit8 codes as int8, po2 scale, new residual)."""
+    r = torch.zeros_like(g) if r is None else r
+    g_fb = g + r.to(g.dtype)
+    s = _po2_scale(g_fb)
+    c = codec_mod.encode(fmt.POSIT8, (g_fb / s).float())
+    deq = codec_mod.decode(fmt.POSIT8, c) * s
+    return c.to(torch.int8), s, (g_fb.float() - deq).to(g.dtype)
+
+
 @torch.no_grad()
 def compress_tree(grads, residuals=None):
     """Quantize a gradient tree to posit8 codes (int8) and per-leaf po2
@@ -42,14 +52,8 @@ def compress_tree(grads, residuals=None):
         else {}
     codes, scales, new_res = {}, {}, {}
     for path, g in flatten_with_paths(grads):
-        r = res[path] if residuals is not None else torch.zeros_like(g)
-        g_fb = g + r.to(g.dtype)
-        s = _po2_scale(g_fb)
-        c = codec_mod.encode(fmt.POSIT8, (g_fb / s).float())
-        deq = codec_mod.decode(fmt.POSIT8, c) * s
-        codes[path] = c.to(torch.int8)
-        scales[path] = s
-        new_res[path] = (g_fb.float() - deq).to(g.dtype)
+        codes[path], scales[path], new_res[path] = _compress(g,
+                                                             res.get(path))
     return (tree_from_paths(grads, codes), tree_from_paths(grads, scales),
             tree_from_paths(grads, new_res))
 
@@ -63,6 +67,15 @@ def decompress_tree(codes, scales):
     sc = dict(flatten_with_paths(scales))
     return tree_from_paths(codes, {path: _decode(c, sc[path]) for path, c
                                    in flatten_with_paths(codes)})
+
+
+@torch.no_grad()
+def error_feedback_leaf(g: torch.Tensor, r=None):
+    """One leaf's compress / decompress round trip: (the gradient as the
+    wire carries it, the new residual).  The scale is the whole leaf's
+    RMS, so a sharded step passes whole leaves."""
+    c, s, new_r = _compress(g, r)
+    return _decode(c, s), new_r
 
 
 def error_feedback_update(grads, residuals):

@@ -38,9 +38,9 @@ def jax_to_numpy(tree):
     return np.asarray(tree)
 
 
-def both_train_runs(steps, **kw):
+def both_train_runs(steps, arch="qwen2-0.5b", **kw):
     """(port losses, JAX losses, port state) of ``steps`` train steps of
-    the float32 reduced qwen2-0.5b from the reference's init state, each
+    the float32 reduced ``arch`` from the reference's init state, each
     package on its own ``TokenStream`` of the same seed; ``kw`` are
     ``RunConfig`` fields."""
     import dataclasses
@@ -59,9 +59,8 @@ def both_train_runs(steps, **kw):
     run_kw = dict(arch="t", steps=steps, lr=3e-3, warmup_steps=2,
                   checkpoint_every=0, **kw)
     jrun, run = JRun(**run_kw), RunConfig(**run_kw)
-    jcfg = dataclasses.replace(jget("qwen2-0.5b").reduced(), dtype="float32")
-    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
-                              dtype="float32")
+    jcfg = dataclasses.replace(jget(arch).reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
     jstate = jloop.init_state(jax.random.PRNGKey(0), jcfg, jrun)
     jstep = jloop.build_train_step(jcfg, jrun, donate=False)
     state = TrainState(torch.zeros((), dtype=torch.int32), *(

@@ -1,14 +1,16 @@
 """The port's differentiable LM forward against the JAX package, on the
 CPU: ``lm_loss`` (loss, ce, MoE aux) and every gradient leaf for the
-dense and MoE families, with and without the paper's mixed QAT policy;
-the three remat modes; the QAT plane against the serving plane.
+dense, MoE, recurrent (rwkv6) and hybrid (jamba) families, with and
+without the paper's mixed QAT policy; the three remat modes; the
+recurrent scans' chunking; the QAT plane against the serving plane.
 
 Float32 reduced configs at seq 64, so attention runs its online softmax
-over two KV chunks (``seq_chunk`` 32) forward and backward.  Losses
-within ``REL``; a gradient leaf within ``REL`` of its largest magnitude
+over two KV chunks (``seq_chunk`` 32) and the Mamba / RWKV scans over
+eight ``ssm_chunk`` chunks, forward and backward.  Losses within
+``REL``; a gradient leaf within ``REL`` of its largest magnitude
 (float32 sums in another order).  Exact: remat none == full == dots,
-``quantize_params_fake``, and each packed leaf's ``to_dense`` against
-the fake-quantized leaf."""
+the forward at ``ssm_chunk`` 8 == at 64, ``quantize_params_fake``, and
+each packed leaf's ``to_dense`` against the fake-quantized leaf."""
 
 import dataclasses
 import os
@@ -36,7 +38,8 @@ from repro_torch.models import zoo  # noqa: E402
 from repro_torch.train.loop import grads_of  # noqa: E402
 
 REL = 1e-5
-ARCHS = {"dense": "qwen2-0.5b", "moe": "kimi-k2-1t-a32b"}
+ARCHS = {"dense": "qwen2-0.5b", "moe": "kimi-k2-1t-a32b",
+         "ssm": "rwkv6-1.6b", "hybrid": "jamba-v0.1-52b"}
 
 
 def _cfgs(arch, **kw):
@@ -72,7 +75,7 @@ def test_lm_loss_and_grads_match_reference(family, qat):
     for got, want in ((loss, jl), (ce, jce), (aux, jaux)):
         assert abs(float(got) - float(want)) <= REL * max(abs(float(want)),
                                                           1e-6)
-    if family == "moe":
+    if family in ("moe", "hybrid"):
         assert float(aux) > 0
     want = dict(flatten_with_paths(jax_to_numpy(jg)))
     got = flatten_with_paths(g)
@@ -86,13 +89,14 @@ def test_lm_loss_and_grads_match_reference(family, qat):
 
 @pytest.mark.parametrize("family", sorted(ARCHS))
 def test_remat_modes_bitwise(family):
-    """remat none == full == dots: the same grads bit for bit (dense: the
-    bf16 config under the QAT policy; MoE: float32)."""
+    """remat none == full == dots: the same grads bit for bit (MoE:
+    float32; the others: the bf16 config under the QAT policy, the
+    recurrent scans checkpointed per chunk under full and dots)."""
     arch = ARCHS[family]
     cfg = get_config(arch).reduced()
     if family == "moe":
         cfg = dataclasses.replace(cfg, dtype="float32")
-    pol = PrecisionPolicy.paper_mixed() if family == "dense" else None
+    pol = PrecisionPolicy.paper_mixed() if family != "moe" else None
     p = zoo.init_model(cfg, torch.Generator().manual_seed(0))
     _, b = _batch(cfg, batch=2)
     out = {}
@@ -104,6 +108,26 @@ def test_remat_modes_bitwise(family):
         assert torch.equal(out[remat][0], out["none"][0])
         for (path, a), (_, w) in zip(out[remat][1], out["none"][1]):
             assert torch.equal(a, w), (remat, path)
+
+
+@pytest.mark.parametrize("family", ["ssm", "hybrid"])
+def test_ssm_chunk_does_not_change_the_forward(family):
+    """The scans' chunks only place the checkpoints: the differentiated
+    forward at ``ssm_chunk`` 8 (eight checkpointed chunks) equals the one
+    at 64 (one chunk) and the one with no remat, bit for bit."""
+    _, cfg = _cfgs(ARCHS[family])
+    p = zoo.init_model(cfg, torch.Generator().manual_seed(0))
+    for _, t in flatten_with_paths(p):
+        t.requires_grad_(True)
+    _, b = _batch(cfg, batch=2)
+    out = [zoo.apply_model(p, b, dataclasses.replace(cfg, **kw),
+                           mode="train")[0]
+           for kw in (dict(ssm_chunk=8, remat="full"),
+                      dict(ssm_chunk=64, remat="full"),
+                      dict(ssm_chunk=8, remat="none"))]
+    assert out[0].requires_grad
+    for o in out[1:]:
+        assert torch.equal(o, out[0])
 
 
 def test_train_mode_builds_no_cache_and_rejects_other_uses():

@@ -5,9 +5,6 @@ step on the CPU, with output shapes checked and no NaNs; the full
 configs' figures, MoE specifics, analytic parameter counts and the
 long_500k skips.
 
-The recurrent and hybrid families (rwkv6, jamba) do not train in the
-port yet (ROADMAP Queue 1 item 3): their forward runs in prefill mode
-and the train mode's refusal is checked instead of the loss and grad.
 The reference's ``active_param_count`` half of the parameter-count test
 waits for the port's ``roofline/`` (ROADMAP Queue 1 item 5)."""
 
@@ -51,31 +48,23 @@ def test_arch_smoke(arch):
     params = T.lm_init(cfg, torch.Generator().manual_seed(0))
     batch = _batch_for(cfg)
 
-    if cfg.family in ("dense", "moe"):
-        # forward + loss
-        logits, _, aux = T.lm_apply(params, batch, cfg, mode="train",
-                                    with_aux=True)
-        assert logits.shape == (B, S, cfg.vocab)
-        assert torch.isfinite(logits.float()).all()
-        loss, (ce, _) = T.lm_loss(params, batch, cfg)
-        assert torch.isfinite(loss)
-        # one train (grad) step
-        leaves = [t for t in _leaves(params)]
-        for t in leaves:
-            t.requires_grad_(True)
-        g = torch.autograd.grad(T.lm_loss(params, batch, cfg)[0], leaves,
-                                allow_unused=True)
-        gnorm = sum(float(x.abs().sum()) for x in g if x is not None)
-        assert np.isfinite(gnorm) and gnorm > 0
-        for t in leaves:
-            t.requires_grad_(False)
-    else:
-        with torch.no_grad():
-            logits, _ = T.lm_apply(params, batch, cfg)
-        assert logits.shape == (B, S, cfg.vocab)
-        assert torch.isfinite(logits.float()).all()
-        with pytest.raises(NotImplementedError, match="differentiable"):
-            T.lm_loss(params, batch, cfg)
+    # forward + loss
+    logits, _, aux = T.lm_apply(params, batch, cfg, mode="train",
+                                with_aux=True)
+    assert logits.shape == (B, S, cfg.vocab)
+    assert torch.isfinite(logits.float()).all()
+    loss, (ce, _) = T.lm_loss(params, batch, cfg)
+    assert torch.isfinite(loss)
+    # one train (grad) step
+    leaves = [t for t in _leaves(params)]
+    for t in leaves:
+        t.requires_grad_(True)
+    g = torch.autograd.grad(T.lm_loss(params, batch, cfg)[0], leaves,
+                            allow_unused=True)
+    gnorm = sum(float(x.abs().sum()) for x in g if x is not None)
+    assert np.isfinite(gnorm) and gnorm > 0
+    for t in leaves:
+        t.requires_grad_(False)
 
     # one decode step with a cache
     cache = T.init_cache(cfg, B, 128, device="cpu")

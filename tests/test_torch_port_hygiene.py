@@ -54,7 +54,8 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.models.moe, repro_torch.models.transformer, "
             "repro_torch.train.loop, repro_torch.checkpoint, "
             "repro_torch.data.tokens, repro_torch.parallel.collectives, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.launch.mesh, "
+            "repro_torch.parallel.sharding, repro_torch.parallel.pipeline\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))")
