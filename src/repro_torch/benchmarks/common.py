@@ -8,13 +8,24 @@ card's work, so a CUDA call is timed to its end.
 
 from __future__ import annotations
 
+import json
+import os
+
 import torch
 
+from .. import resolve_device
+from ..configs import get_config
 from ..kernels import ops
 from ..kernels.ref import no_tf32
 from ..obs.stats import time_call
 
-__all__ = ["time_call", "emit", "check_packed"]
+__all__ = ["time_call", "emit", "check_packed", "OUT_DIR", "bench_config",
+           "device_name", "write_json"]
+
+# where the serving twins write their JSON and trace (never the
+# repository root's BENCH_*.json or artifacts/, the reference's files)
+OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "build",
+                       "bench_torch")
 
 # |err| / max|want|: f32 sums over K in another order (K <= 1024)
 PACKED_RTOL = 1e-4
@@ -36,3 +47,26 @@ def check_packed(name: str, x: torch.Tensor, t: ops.PackedTensor) -> None:
     if not err <= tol:
         raise AssertionError(f"{name}: packed product differs from "
                              f"x @ dequant(W) by {err:.3e} (tol {tol:.3e})")
+
+
+def bench_config(arch: str = "qwen2-0.5b", full: bool = False):
+    """The serving twins' config: the reference's ``.reduced()`` one, or
+    with ``full`` the published width and depth."""
+    cfg = get_config(arch)
+    return cfg if full else cfg.reduced()
+
+
+def device_name(device) -> str:
+    """What a result ran on: the card's name, or ``cpu``."""
+    dev = resolve_device(device)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def write_json(results: dict, name: str, out_dir=None) -> str:
+    out_dir = out_dir or OUT_DIR
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, name)
+    with open(path, "w") as f:
+        json.dump(results, f, indent=1, sort_keys=True)
+    print(f"# wrote {os.path.normpath(path)}", flush=True)
+    return path

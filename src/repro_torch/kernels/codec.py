@@ -27,7 +27,7 @@ import torch
 
 from ..core.formats import FormatSpec
 from ..core.packing import lanes_per_word
-from . import _build
+from . import _build, fake
 from . import ref
 from .rmmec_matmul import H100_SMS, KIND, _sms
 
@@ -106,6 +106,9 @@ def dequant(words: torch.Tensor, scales: torch.Tensor, spec: FormatSpec,
         raise ValueError(
             f"inconsistent packed layout: words {tuple(words.shape)}, "
             f"scales {tuple(scales.shape)}, k={k}, n={n}")
+    if fake.is_fake(words):
+        return fake.kernel_call("dequant", (k, n), dtype, words, float(k * n),
+                                fake.nbytes((words, scales)))
     if words.device.type == "cpu":
         return dequant_plain(words, scales, spec, k, n, dtype)
     if words.device.type != "cuda":

@@ -53,7 +53,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, fake
 from .ref import dequant_kv_ref, no_tf32
 
 __all__ = ["flash_decode", "flash_decode_plain", "paged_flash_decode",
@@ -357,6 +357,12 @@ def flash_decode(q: torch.Tensor, k_codes: torch.Tensor,
             f"blk {blk}")
     if not 0 <= pos < t:
         raise ValueError(f"pos {pos} outside the cache of {t} slots")
+    if fake.is_fake(q):
+        live = pos + 1
+        return fake.kernel_call(
+            "flash_decode", (b, kh, g, dh), torch.float32, q,
+            4.0 * b * kh * g * live * dh,
+            2 * b * live * kh * (dh + 2 * gs) + fake.nbytes((q, pad)))
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_codes, k_scale, v_codes, v_scale, pos,
                                   pad, softcap, blk)
@@ -396,6 +402,14 @@ def paged_flash_decode(q: torch.Tensor, k_codes: torch.Tensor,
             or positions.shape != (b,):
         raise ValueError(f"page_table {tuple(page_table.shape)} / positions "
                          f"{tuple(positions.shape)} do not match B={b}")
+    if fake.is_fake(q):
+        # positions are data: count every slot the page table spans
+        span = b * page_table.shape[1] * k_codes.shape[1]
+        return fake.kernel_call(
+            "paged_flash_decode", (b, kh, g, dh), torch.float32, q,
+            4.0 * span * kh * g * dh,
+            span * 2 * kh * (dh + 2 * k_scale.shape[-1])
+            + fake.nbytes((q, page_table, positions)))
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, k_codes, k_scale, v_codes, v_scale,
                                         page_table, positions, softcap)
@@ -434,6 +448,14 @@ def paged_flash_prefill(q: torch.Tensor, k_codes: torch.Tensor,
             or start.shape != (b,):
         raise ValueError(f"page_table {tuple(page_table.shape)} / start "
                          f"{tuple(start.shape)} do not match B={b}")
+    if fake.is_fake(q):
+        # the starts are data: count every slot the page table spans
+        span = b * page_table.shape[1] * k_codes.shape[1]
+        return fake.kernel_call(
+            "paged_flash_prefill", (b, c, kh, g, dh), torch.float32, q,
+            4.0 * span * c * kh * g * dh,
+            span * 2 * kh * (dh + 2 * k_scale.shape[-1])
+            + fake.nbytes((q, page_table, start)))
     if q.device.type == "cpu":
         return paged_flash_prefill_plain(q, k_codes, k_scale, v_codes,
                                          v_scale, page_table, start, softcap)

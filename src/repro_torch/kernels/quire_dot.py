@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..core import formats as fmt
-from . import _build
+from . import _build, fake
 
 __all__ = ["QUIRE_FRAC_BITS", "quire_dot", "quire_dot_plain", "quire_route"]
 
@@ -81,6 +81,12 @@ def quire_dot(a_codes: torch.Tensor, b_codes: torch.Tensor
                          f"{tuple(a_codes.shape)} and {tuple(b_codes.shape)}")
     if a_codes.dtype != torch.int32 or b_codes.dtype != torch.int32:
         raise TypeError("codes must be int32")
+    if fake.is_fake(a_codes):
+        bsz, kdim = a_codes.shape
+        limbs = fake.kernel_call("quire_dot", (bsz, 2), torch.int32,
+                                 a_codes, 2.0 * bsz * kdim,
+                                 fake.nbytes((a_codes, b_codes)))
+        return limbs[:, :1], limbs[:, 1:]
     if a_codes.device.type == "cpu":
         return quire_dot_plain(a_codes, b_codes)
     if a_codes.device.type != "cuda":

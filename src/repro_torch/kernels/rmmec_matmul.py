@@ -35,7 +35,7 @@ import torch
 from ..core import codec as codec_mod
 from ..core.formats import FormatSpec
 from ..core.packing import lanes_per_word
-from . import _build
+from . import _build, fake
 from . import ref
 
 __all__ = ["rmmec_matmul", "rmmec_matmul_plain", "default_blocks",
@@ -218,6 +218,11 @@ def rmmec_matmul(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor,
     ``n`` is the logical N (default Np)."""
     kp, np_, group = _check(x, words, scales, mask, spec, n)
     n = np_ if n is None else n
+    if fake.is_fake(x):
+        m, k = x.shape
+        return fake.kernel_call("rmmec_matmul", (m, n), torch.float32, x,
+                                2.0 * m * k * n,
+                                fake.nbytes((x, words, scales, mask)))
     if x.device.type == "cpu":
         return rmmec_matmul_plain(x, words, scales, spec, n)
     if x.device.type != "cuda":

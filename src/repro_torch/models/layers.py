@@ -166,9 +166,8 @@ def mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
         sections = (half - 2 * hw, hw, hw)
     assert sum(sections) == half, (sections, half)
     freqs = rope_freqs(x.shape[-1], theta, x.device)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(list(sections), device=x.device))
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)
     ang = positions3[sec_id].movedim(0, -1).float() * freqs
     cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)

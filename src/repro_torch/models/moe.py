@@ -35,6 +35,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.fake import is_fake
 from ..kernels.ops import PackedTensor, dequant, to_dense
 from ..parallel.sharding import batch_ranks, batch_sum
 from . import layers as L
@@ -80,8 +81,10 @@ def _n_groups(n: int, target: int = 4096, cap: int = 512) -> int:
 
 
 def _expert_product(x: torch.Tensor, w, dtype) -> torch.Tensor:
-    """x (G, E, C, K) @ expert stack (E, K, N) -> (G, E, C, N)."""
-    if x.is_cuda:
+    """x (G, E, C, K) @ expert stack (E, K, N) -> (G, E, C, N).  The
+    card's route (one expert at a time) also runs on fake tensors, so a
+    dry run counts what the card does."""
+    if x.is_cuda or is_fake(x):
         outs = []
         for e in range(x.shape[1]):
             we = w[e]

@@ -380,16 +380,19 @@ def placements(mesh, spec: tuple) -> tuple:
 
 def _from_whole(t: torch.Tensor, mesh, pl):
     """The whole tensor ``t`` (the same on every rank) as a DTensor with
-    placements ``pl``: each rank keeps its part (what
-    ``distribute_tensor`` keeps, with no communication).  The specs only
-    shard dims their axes divide, so every part has the same shape."""
+    placements ``pl``: each rank keeps a copy of its part (what
+    ``distribute_tensor`` keeps, with no communication), so the whole
+    tensor is not held alive by a view.  The specs only shard dims their
+    axes divide, so every part has the same shape."""
     from torch.distributed.tensor import DTensor, Shard
     coord = mesh.get_coordinate()
     local = t
     for i, p in enumerate(pl):
         if isinstance(p, Shard):
             local = local.chunk(mesh.size(i), dim=p.dim)[coord[i]]
-    return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False)
+    local = t.contiguous() if local is t else \
+        local.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, pl, run_check=False)
 
 
 def place(t: torch.Tensor, sharding: NamedSharding):

@@ -3,10 +3,8 @@
 architectures runs a forward, the loss, one gradient step and one decode
 step on the CPU, with output shapes checked and no NaNs; the full
 configs' figures, MoE specifics, analytic parameter counts and the
-long_500k skips.
-
-The reference's ``active_param_count`` half of the parameter-count test
-waits for the port's ``roofline/`` (ROADMAP Queue 1 item 5)."""
+long_500k skips, with the MoE active-parameter share from the port's
+``roofline.analysis``."""
 
 import os
 import sys
@@ -118,7 +116,8 @@ def test_moe_specifics():
 
 def test_param_counts_plausible():
     """Analytic parameter counts are in the advertised ballpark (the
-    reference's ranges)."""
+    reference's ranges), and MoE active params far below total."""
+    from repro_torch.roofline import analysis as ra
     checks = {
         "gemma-2b": (2.0e9, 3.5e9),
         "deepseek-67b": (60e9, 72e9),
@@ -132,6 +131,9 @@ def test_param_counts_plausible():
     for arch, (lo, hi) in checks.items():
         n = get_config(arch).param_count()
         assert lo <= n <= hi, (arch, n)
+    kimi = get_config("kimi-k2-1t-a32b")
+    act = ra.active_param_count(kimi)
+    assert act < 0.06 * kimi.param_count()
 
 
 def test_long_500k_skips_are_correct():
