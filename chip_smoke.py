@@ -13,9 +13,13 @@ Phases, each of which fails the run (non-zero exit) on any miss:
      with an all-zero mask block; then posit8 and FP4 x {per channel,
      group 32, group 64} x {stacked, 2-D} at K=1100, N=300 for M in {1,
      3, 8, 16, 17, 64, 256, 1024}, gated chunks among them), bitwise row
-     invariance on all three routes (rows of an M=1024 call equal the
-     same rows at M=256, 8 and 1, and a row equals itself among other
-     rows), times of one layer's seven projections at M=8, 256 and 1024;
+     invariance on every route (rows of an M=1024 call equal the same
+     rows at M=256, 16, 8, 3 and 1, and a row equals itself among other
+     rows; f32 x and posit16 stream at M <= 16, among them a 3584 x 8200
+     posit16 weight with one gated block and f32 x with FP4 and posit8),
+     every posit16 code decoded by the streaming kernel bitwise as by
+     simt_kernel and the plain version, times of one layer's seven
+     projections at M=8, 256 and 1024;
      and ``flash_decode`` (qwen2-0.5b's B=8, Kh=2, G=7, Dh=64 over T=256
      slots, with pad and softcap; and over caches of 100, 66 and 67 slots,
      whose KV blocks are 4, 2 and 1 slots);
@@ -82,7 +86,8 @@ and, for the recurrent, hybrid and MoE families (posit8 state slabs):
       run's tokens equal the static ones, exact launch counts (0
       attention), ``export_state`` bytes == ``state_slab_bytes``; ms per
       forward / decode iteration, the static step's device-busy share,
-      peak memory;
+      peak memory; first the posit16 read-out at M = 8 timed beside its
+      bytes bound (rows bitwise those of an M=64 call);
   3e. jamba-v0.1 at full width, depth 8 (one group: 7 Mamba, 1 attention,
       4 MoE of 16 experts top-2, 4 dense SwiGLU layers; MoE capacity 8.0),
       weights drawn and packed block by block on the card: every expert
@@ -91,7 +96,7 @@ and, for the recurrent, hybrid and MoE families (posit8 state slabs):
       plus K=1 on 8 KV pages (a running request preempted and
       resumed from its snapshot), exact launch counts (``flash_decode``
       per static step, ``paged_flash_decode`` per iteration, ``dequant``
-      per expert slice);
+      per expert slice); the read-out timed at M = 6 as in 3d;
   4c. reduced rwkv6, jamba and kimi-k2 in float32 (``paper_mixed``), card
       against CPU: prefill logits within 1e-4, greedy tokens equal, posit8
       state codes equal but for values straddling a rounding boundary
@@ -175,11 +180,14 @@ layer on the card, ``paper_mixed``, posit8 KV):
       width through ``zoo.apply_model`` / ``zoo.decode_model`` (the
       engines take token prompts only): 32 greedy steps, exact launch
       counts (musicgen's code embed through ``dequant``), finite logits,
-      each projection and the posit16 read-out against plain at M = 2;
+      each projection and the posit16 read-out against plain at M = 2,
+      qwen2-vl's read-out timed at M = 1, 2, 4, 8 and 16;
   3h. deepseek-67b and command-r-plus-104b at full width, depth 2: their
       widest projections against plain at M = 1, 8, 128, the posit16
-      read-out (up to 12288 x 256000, RMMEC's SIMT route) timed beside
-      its bytes bound, static serving with exact launch counts;
+      read-out (up to 12288 x 256000, RMMEC's streaming route) timed
+      beside its bytes bound, its rows bitwise those of an M=64 call,
+      static serving with exact launch counts (the streaming route's
+      too);
   4d. the five configs reduced in float32, card against CPU: prefill and
       4 decode steps' logits within 1e-5 of max|logit|, gemma's
       continuous tokens equal.
@@ -395,15 +403,22 @@ def _rmmec_times(x, t):
 
 def _rmmec_rows(spec, group, k, n, stacked, zero_block, xdtype, gen, fails):
     """Bitwise row invariance: rows of an M=1024 call equal the same rows
-    of M=256, 8 and 1 calls (other routes, other tiles), and rows equal
-    themselves among other rows of random content."""
+    of M=256, 16, 8, 3 and 1 calls (other routes, other tiles), and rows
+    equal themselves among other rows of random content; the M=8 call
+    within ``RMMEC_RTOL`` of the plain version.  ``zero_block``: True
+    zeros the 2-D layout's first K block of rows, "block" its first mask
+    block only.  Returns the M=8 call's error."""
     from repro_torch.kernels.ops import pack_tensor
     from repro_torch.kernels.rmmec_matmul import (default_blocks, launch_plan,
-                                                  rmmec_matmul)
+                                                  rmmec_matmul,
+                                                  rmmec_matmul_plain)
     w = torch.randn((2, k, n) if stacked else (k, n), generator=gen,
                     device="cuda") * 0.05
-    if zero_block:
-        w[..., : default_blocks(spec)[1], :] = 0.0
+    _, bk, bn = default_blocks(spec)
+    if zero_block == "block":
+        w[..., :bk, :bn] = 0.0
+    elif zero_block:
+        w[..., :bk, :] = 0.0
     t = pack_tensor(spec, w, group_size=group)
     t = t[1] if stacked else t
     x = torch.randn((1024, k), generator=gen, device="cuda").to(xdtype)
@@ -413,7 +428,8 @@ def _rmmec_rows(spec, group, k, n, stacked, zero_block, xdtype, gen, fails):
                             t.spec, n)
 
     full = run(x)
-    checks = {m: torch.equal(run(x[:m]), full[:m]) for m in (256, 8, 1)}
+    checks = {m: torch.equal(run(x[:m]), full[:m])
+              for m in (256, 16, 8, 3, 1)}
     other = torch.randn((1024, k), generator=gen, device="cuda").to(xdtype)
     for r in (0, 5, 700):       # row r among other rows, at M=1024 and 8
         mixed = other.clone()
@@ -422,8 +438,12 @@ def _rmmec_rows(spec, group, k, n, stacked, zero_block, xdtype, gen, fails):
         if r < 8:
             checks[f"row {r} among others M=8"] = torch.equal(
                 run(mixed[:8])[r], full[r])
+    want = rmmec_matmul_plain(x[:8], t.words, t.scales, t.spec, n)
+    err = (run(x[:8]) - want).abs().max().item()
+    tol = RMMEC_RTOL * want.abs().max().item()
+    checks["M=8 vs plain"] = err <= tol
     routes = sorted({launch_plan(m, k, n, xdtype, spec.bits).route
-                     for m in (1024, 256, 8, 1)})
+                     for m in (1024, 256, 16, 8, 3, 1)})
     # not required: a row moved to another place in its 16-row MMA group
     moved = torch.equal(run(x[37:38])[0], full[37])
     ok = all(checks.values())
@@ -432,9 +452,42 @@ def _rmmec_rows(spec, group, k, n, stacked, zero_block, xdtype, gen, fails):
            f" x={str(xdtype).split('.')[-1]} routes={'/'.join(routes)}")
     log(f"[rmmec] bitwise rows {tag}: "
         + ", ".join(f"{c}: {'ok' if v else 'MISS'}" for c, v in checks.items())
-        + f" (row 37 alone at M=1, not required: {moved})")
+        + f" (M=8 max_abs_err {err:.3e}, tol {tol:.3e}; row 37 alone at M=1,"
+        f" not required: {moved})")
     if not ok:
         fails.append(f"rmmec bitwise rows {tag}")
+    return err
+
+
+def _posit16_every_code(fails) -> None:
+    """Every posit16 code as one row of weights (K=1, N=65536, scales 1,
+    x = 1): the streaming kernel's values (M=1) equal simt_kernel's (M=64,
+    ``Posit<16,1>::decode``) bit for bit and the plain version's, for bf16
+    and f32 x."""
+    from repro_torch.core import formats as fmt
+    from repro_torch.core.packing import pack
+    from repro_torch.kernels.rmmec_matmul import (launch_plan, rmmec_matmul,
+                                                  rmmec_matmul_plain)
+    spec = fmt.POSIT16
+    words = pack(torch.arange(1 << 16, device="cuda")[None], 16)
+    scales = torch.ones((1, 1 << 16), device="cuda")
+    mask = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+    for xdtype in (torch.bfloat16, torch.float32):
+        x = torch.ones((64, 1), device="cuda", dtype=xdtype)
+        one = rmmec_matmul(x[:1], words, scales, mask, spec)
+        simt = rmmec_matmul(x, words, scales, mask, spec)[:1]
+        plain = rmmec_matmul_plain(x[:1], words, scales, spec, 1 << 16)
+        torch.cuda.synchronize()
+        same = torch.equal(one.view(torch.int32), simt.view(torch.int32))
+        as_plain = torch.equal(one, plain)
+        routes = (launch_plan(1, 1, 1 << 16, xdtype, 16).route,
+                  launch_plan(64, 1, 1 << 16, xdtype, 16).route)
+        log(f"[rmmec] every posit16 code, x={str(xdtype).split('.')[-1]}: "
+            f"{routes[0]} (M=1) == {routes[1]} (M=64) bitwise: {same}; == "
+            f"plain: {as_plain}")
+        if not (same and as_plain):
+            fails.append(f"rmmec: posit16 codes decode differently "
+                         f"({xdtype}: simt {same}, plain {as_plain})")
 
 
 def phase_rmmec(summary, fails) -> None:
@@ -477,11 +530,25 @@ def phase_rmmec(summary, fails) -> None:
             (fmt.POSIT8, None, 1100, 300, False, True)):
         _rmmec_rows(spec, group, k, n, stacked, zero, torch.bfloat16, gen,
                     fails)
-    # the SIMT route: f32 x, and posit16 with bf16 x
-    _rmmec_rows(fmt.POSIT8, None, 896, 896, True, False, torch.float32, gen,
-                fails)
-    _rmmec_rows(fmt.POSIT16, 32, 896, 896, True, False, torch.bfloat16, gen,
-                fails)
+    stream_err = 0.0
+    # the f32 FMA routes (streaming M <= 16, SIMT above): f32 x, and
+    # posit16 with bf16 x; a read-out-like posit16 shape with ragged edges
+    # and one gated block, f32 x with FP4 and posit8 at K=1100, N=300
+    for spec, group, k, n, stacked, zero, xdtype in (
+            (fmt.POSIT8, None, 896, 896, True, False, torch.float32),
+            (fmt.POSIT16, 32, 896, 896, True, False, torch.bfloat16),
+            (fmt.POSIT16, None, 3584, 8200, False, "block", torch.bfloat16),
+            (fmt.POSIT16, 32, 3584, 8200, False, "block", torch.bfloat16),
+            (fmt.POSIT16, None, 3584, 8200, False, "block", torch.float32),
+            (fmt.POSIT16, 32, 3584, 8200, False, "block", torch.float32),
+            (fmt.FP4, 32, 1100, 300, False, True, torch.float32),
+            (fmt.POSIT8, None, 1100, 300, True, False, torch.float32)):
+        err = _rmmec_rows(spec, group, k, n, stacked, zero, xdtype, gen,
+                          fails)    # its M=8 call streams
+        stream_err = max(stream_err, err)
+    max_err = max(max_err, stream_err)
+    _posit16_every_code(fails)
+    summary["rmmec_stream"] = dict(max_abs_err=stream_err)
 
     # times at the main path's shapes: one layer's seven projections under
     # paper_mixed (posit8 attention, FP4 FFN, per-channel scales), stacked
@@ -738,7 +805,8 @@ def _profile(fn, cpu: bool = True):
 
 ATTENTION_KERNELS = ("decode_page_kernel", "decode_fold_kernel",
                      "prefill_kernel")
-RMMEC_KERNELS = ("split_k_kernel", "tile_kernel", "simt_kernel")
+RMMEC_KERNELS = ("split_k_kernel", "tile_kernel", "simt_kernel",
+                 "stream_kernel", "stream_narrow_kernel")
 
 
 def _top_and_attention(dev, n: int = 8):
@@ -1978,6 +2046,7 @@ def phase_rwkv(summary, fails) -> None:
         f"d_ff={cfg.d_ff}, vocab {cfg.vocab}, paper_mixed; init + pack "
         f"{time.perf_counter() - t0:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _readout_time("rwkv6", params, 8, summary, fails)  # 8 requests decode
     phase_stateful(summary, fails, "rwkv6", cfg, params,
                    _stateful_traffic(cfg.vocab, 8, 32, 0), n_pages=8)
 
@@ -2027,6 +2096,7 @@ def phase_jamba(summary, fails) -> None:
             fails.append(f"jamba8: a {name} expert slice through dequant "
                          f"differs from to_dense")
         del whole
+    _readout_time("jamba8", params, 6, summary, fails)  # 6 requests decode
     # traffic cut to 6 requests of 16 new tokens (3d serves 8 of 32) to
     # keep the phase's wall time down; the width stays
     phase_stateful(summary, fails, "jamba8", cfg, params,
@@ -2917,33 +2987,72 @@ def _check_launches(tag, launches, expect, fails) -> None:
                          f"expected {n}")
 
 
-def _readout_time(tag, params, b, summary) -> None:
-    """The untied posit16 read-out on RMMEC's SIMT route at the decode
-    batch ``b``: kernel, plain and library (bf16 ``torch.matmul`` on a
-    dense copy) times beside the bytes bound."""
+def _readout_time(tag, params, b, summary, fails, sweep=()) -> None:
+    """The untied posit16 read-out at the decode batch ``b`` (RMMEC's
+    streaming route): kernel, plain and library (bf16 ``torch.matmul`` on
+    a dense copy) times beside the bytes bound; its rows bitwise those of
+    an M=64 call (simt_kernel) and within ``RMMEC_RTOL`` of plain; and the
+    kernel and library at each M of ``sweep`` beside its bound."""
     from repro_torch.kernels.codec import dequant_plain
     from repro_torch.kernels.rmmec_matmul import launch_plan, rmmec_matmul
     t = params["lm_head"]["w"]
     k, n = t.shape
-    x = torch.randn((b, k), device="cuda").to(torch.bfloat16)
-    ms = time_ms(lambda: rmmec_matmul(x, t.words, t.scales, t.mask, t.spec,
-                                      n), iters=10)
+    x64 = torch.randn((64, k), device="cuda").to(torch.bfloat16)
+    x = x64[:b]
+
+    def call(xx):
+        return rmmec_matmul(xx, t.words, t.scales, t.mask, t.spec, n)
+
+    got, want = call(x), _plain_slabs(x, t)
+    same = torch.equal(got, call(x64)[:b])
+    err = (got - want).abs().max().item()
+    tol = RMMEC_RTOL * want.abs().max().item()
+    del want
+    if not (same and err <= tol):
+        fails.append(f"{tag}: read-out at M={b}: rows == M=64 {same}, "
+                     f"max_abs_err {err:.3e} (tol {tol:.3e})")
     plain = time_ms(lambda: _plain_slabs(x, t), iters=3, warmup=1)
     dense = torch.cat([dequant_plain(w, sc, t.spec, k, ns, torch.bfloat16)
                        for w, sc, ns in _col_slabs(t)], dim=1)
-    lib = time_ms(lambda: torch.matmul(x, dense), iters=10)
+    rows = {}
+    for m in sorted({b, *sweep}):
+        xm = x64[:m].contiguous()
+        ms = time_ms(lambda: call(xm), iters=10)
+        lib = time_ms(lambda: torch.matmul(xm, dense), iters=10)
+        nbytes = (xm.numel() * 2 + t.words.numel() * 4 + t.scales.numel() * 4
+                  + t.mask.numel() * 4 + m * n * 4)
+        rows[m] = (ms, lib) + bound_ms(nbytes, 2.0 * m * k * n,
+                                       PEAK_FLOPS["f32"]) + (nbytes,)
     del dense
-    nbytes = (x.numel() * 2 + t.words.numel() * 4 + t.scales.numel() * 4
-              + t.mask.numel() * 4 + b * n * 4)
-    b_ms, b_by = bound_ms(nbytes, 2.0 * b * k * n, PEAK_FLOPS["f32"])
-    route = launch_plan(b, k, n, x.dtype, t.spec.bits).route
-    log(f"[{tag}] read-out {t.spec.name} K={k} N={n} M={b} route={route}: "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library (bf16 matmul, "
-        f"dense copy) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{nbytes / 1e9:.3f} GB)")
-    summary["rmmec_matmul"].update({
-        f"ms_readout_{tag}": ms, f"plain_ms_readout_{tag}": plain,
-        f"library_ms_readout_{tag}": lib, f"bound_ms_readout_{tag}": b_ms})
+    ms, lib, b_ms, b_by, nbytes = rows[b]
+    route = launch_plan(b, k, n, x.dtype, t.spec.bits)
+    log(f"[{tag}] read-out {t.spec.name} K={k} N={n} M={b} route="
+        f"{route.route} strip={route.strip} grid={route.grid[0]}: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, library (bf16 matmul, dense "
+        f"copy) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{nbytes / 1e9:.3f} GB), kernel/bound {ms / b_ms:.2f}; rows == M=64 "
+        f"(simt) bitwise: {same}; max_abs_err {err:.3e} (tol {tol:.3e})")
+    for m in sweep:
+        mm, ml, mb, mby, _ = rows[m]
+        log(f"[{tag}] read-out sweep M={m} route="
+            f"{launch_plan(m, k, n, x.dtype, t.spec.bits).route}: kernel "
+            f"{mm:.4f} ms, library {ml:.4f} ms, bound {mb:.4f} ms ({mby}), "
+            f"kernel/bound {mm / mb:.2f}")
+        summary["rmmec_stream"].update({f"ms_readout_{tag}_m{m}": mm,
+                                        f"library_ms_readout_{tag}_m{m}": ml,
+                                        f"bound_ms_readout_{tag}_m{m}": mb})
+    entry = {f"ms_readout_{tag}": ms, f"plain_ms_readout_{tag}": plain,
+             f"library_ms_readout_{tag}": lib,
+             f"bound_ms_readout_{tag}": b_ms}
+    summary["rmmec_matmul"].update(entry)
+    summary["rmmec_matmul"]["max_abs_err"] = max(
+        summary["rmmec_matmul"]["max_abs_err"], err)
+    s = summary["rmmec_stream"]
+    s.update(entry)
+    s["max_abs_err"] = max(s.get("max_abs_err", 0.0), err)
+    if tag == "commandr2":   # the line's own numbers: the largest read-out
+        s.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                 bound_by=b_by)
 
 
 def phase_gemma(summary, fails) -> None:
@@ -3143,7 +3252,8 @@ def phase_frontends(summary, fails) -> None:
             params["embed"] = {"table": params["embed"]["table"].to(
                 torch.bfloat16)}
         _rmmec_path_cases(tag, params, summary, fails, ms=(2,))
-        _readout_time(tag, params, 2, summary)
+        _readout_time(tag, params, 2, summary, fails,
+                      sweep=(1, 2, 4, 8, 16) if tag == "qwen2vl" else ())
         batch = _frontend_batch(cfg, 2, 384 if cfg.frontend == "vision"
                                 else 256, 3)
         _frontend_phase(summary, fails, tag, cfg, params, batch, 32, max_len,
@@ -3167,6 +3277,7 @@ def phase_wide_dense(summary, fails) -> None:
     bound; static ``ServeEngine`` batch 4, prompt 64, 8 steps (RMMEC 7 x 2
     + 1 a forward, ``flash_decode`` 2 a step)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.rmmec_matmul import stream_route
     from repro_torch.serve.engine import ServeEngine
     smi = card()
     for arch, tag in (("deepseek-67b", "deepseek2"),
@@ -3175,7 +3286,7 @@ def phase_wide_dense(summary, fails) -> None:
         cfg = dataclasses.replace(get_config(arch), n_layers=2)
         params = _init_packed(tag, cfg)
         _rmmec_path_cases(tag, params, summary, fails, ms=(1, 8, 128))
-        _readout_time(tag, params, 4, summary)
+        _readout_time(tag, params, 4, summary, fails)
         b, s0, steps = 4, 64, 8
         eng = ServeEngine(cfg, params, max_len=128, quantized_kv=True)
         del params
@@ -3183,12 +3294,23 @@ def phase_wide_dense(summary, fails) -> None:
         eng.generate(toks, 1)                        # warm-up
         _, pre_s, _ = _counted(lambda: eng.generate(toks, 0))
         torch.cuda.reset_peak_memory_stats()
+        stream_route.launches = 0
         out, wall, launches = _counted(lambda: eng.generate(toks, steps))
         step_ms = (wall - pre_s) / steps * 1e3
         _check_launches(tag, launches, {
             "rmmec_matmul": (7 * cfg.n_layers + 1) * (1 + steps),
             "flash_decode": cfg.n_layers * steps, "paged_flash_decode": 0,
             "paged_flash_prefill": 0, "dequant": 0, "quire_dot": 0}, fails)
+        # the read-out of the prefill (last position) and of each step, at
+        # M = b on the streaming route
+        log(f"[{tag}] streaming route launches {stream_route.launches}, "
+            f"expected {1 + steps}")
+        if stream_route.launches != 1 + steps:
+            fails.append(f"{tag}: streaming route launched "
+                         f"{stream_route.launches} times, expected "
+                         f"{1 + steps}")
+        summary["rmmec_stream"][f"launches_{tag}"] = stream_route.launches
+        summary["rmmec_stream"]["launches"] = stream_route.launches
         for name in ("rmmec_matmul", "flash_decode"):
             summary[name][f"launches_{tag}"] = launches[name]
         if out.shape != (b, s0 + steps) or out.min() < 0 \
@@ -3544,6 +3666,7 @@ def main() -> int:
     kernels = []
     for name, src, tpu in (
             ("rmmec_matmul", RMMEC_SRC, RMMEC_TPU),
+            ("rmmec_stream", RMMEC_SRC, RMMEC_TPU),
             ("flash_decode", FLASH_SRC, FLASH_TPU),
             ("paged_flash_decode", FLASH_SRC, PAGED_DECODE_TPU),
             ("paged_flash_prefill", FLASH_SRC, PAGED_PREFILL_TPU),
@@ -3574,6 +3697,9 @@ def main() -> int:
         elif name in ("dequant", "quire_dot"):   # the second timed shape
             kernels[-1].update({key: v for key, v in s.items()
                                 if key.startswith(("ms_", "bound_ms_"))})
+        elif name == "rmmec_stream":   # the streaming route: every read-out
+            kernels[-1].update({key: v for key, v in s.items()
+                                if key not in kernels[-1]})
         elif name == "attention_wide":   # prefill and Dh 320 beside decode
             kernels[-1].update({key: v for key, v in s.items()
                                 if key not in kernels[-1]

@@ -28,9 +28,48 @@
 // Routes (chosen by the wrapper, kernels/rmmec_matmul.py, launch_plan):
 //   - bf16 x with a format of <= 8 bits (the main path): the tensor-core
 //     design below, split-K for M <= 16 and tiles for larger M;
-//   - f32 x, or posit16 with any x: simt_kernel, a sequential fmaf over K
-//     per output element in f32 (posit16 carries 12 fraction bits, which
-//     bf16 cannot hold).
+//   - f32 x, or posit16 with any x: a sequential fmaf over K per output
+//     element in f32 (posit16 carries 12 fraction bits, which bf16 cannot
+//     hold): the streaming kernels for M <= 16 (every untied posit16
+//     read-out at decode), simt_kernel above.
+//
+// The streaming route (M <= 16).  What bounds it: bytes.  A posit16 weight
+// carries at most 32 FLOP for its 2 bytes at M = 16, under the ~20 FLOP a
+// byte at which f32 FMA (67 TFLOP/s) meets 3.35 TB/s, so the read of the
+// packed words is the bound (command-r's 12288 x 256000 read-out: 6.3 GB,
+// 1.88 ms); near M = 16 instruction issue (16 FMAs a code) can bound it
+// first.  The design:
+//   - Parallelism from columns, never from K: each output is one thread's
+//     sequential fmaf over all of K; no split-K.
+//   - stream_kernel (N of 256 x SMs or more): a warp owns a strip of 32
+//     columns (eight to a block) and walks K in steps of 128 / bits rows;
+//     lane l loads one 16-byte piece of the step (8 posit16 codes, 16 of 8
+//     bits, 32 of 4 bits), decodes it into the warp's rows in shared memory
+//     (row stride 36 floats: no bank conflicts), and after a __syncwarp
+//     sums column l over the step's rows for every row of x.  Loads run
+//     two steps ahead in registers, issued from always-valid addresses so
+//     that nothing waits on them before their step; warps never wait on
+//     each other.
+//   - stream_narrow_kernel (fewer columns, e.g. musicgen's 2048): a block
+//     owns a strip of 8 .. 128 columns; its 256 threads decode chunks of up
+//     to 256 rows together (a cp.async ring of six chunks, one barrier a
+//     chunk) while thread c < bn sums column c, so the decode of many rows
+//     runs beside the columns' sequential chains.
+//   - The decode is a table lookup, made by the wrapper from the port's
+//     codec (stream_table) and replicated per lane in shared memory (no bank
+//     conflicts): formats of <= 8 bits one f32 a code (4 bits: a byte's
+//     two); posit16 an entry (base, mul) per high byte of the code, whose
+//     value bits are base + sx * mul (sx the code sign-extended; one IMAD,
+//     no __clz, no conversion) wherever the regime run is <= 6; zero, NaR
+//     and longer runs (|value| <= 2^-12 or >= 2^12) carry mul 0, which
+//     sends them to Posit<16,1>::decode out of line.
+//   - Bitwise simt_kernel's numbers: each output is a sequential fmaf over k
+//     ascending from +0 of float(x) and the decoded weight times its group
+//     scale (rounded to f32); 32-row steps are skipped where simt_kernel
+//     gates its 64-column tile, simt_kernel's zero rows past K (a K that is
+//     not a multiple of 32) add +0; the per-channel scale at the end.  So a
+//     row's output is the same at M <= 16 and above.  No scratch, no
+//     counters, one launch a call.
 //
 // The tensor-core design: one K-chunk partial and one ordered fold.
 //   - K is cut into chunks of KC = 128 rows, boundaries from K alone.  A
@@ -191,20 +230,14 @@ struct Args {
   cudaStream_t stream;
 };
 
+// M > 16 (M <= 16 streams): 64-row tiles
 template <class F, typename TX>
 cudaError_t launch_tiles(const Args& a) {
   const TX* x = static_cast<const TX*>(a.x);
-  if (a.M <= 32) {
-    dim3 grid((a.N + SIMT_BN - 1) / SIMT_BN, (a.M + 7) / 8);
-    simt_kernel<F, TX, 8, 1, 2><<<grid, SIMT_THREADS, 0, a.stream>>>(
-        x, a.w, a.scales, a.mask, a.out, a.M, a.K, a.N, a.Np, a.group, a.mk,
-        a.mn, a.mask_cols);
-  } else {
-    dim3 grid((a.N + SIMT_BN - 1) / SIMT_BN, (a.M + 63) / 64);
-    simt_kernel<F, TX, 64, 4, 4><<<grid, SIMT_THREADS, 0, a.stream>>>(
-        x, a.w, a.scales, a.mask, a.out, a.M, a.K, a.N, a.Np, a.group, a.mk,
-        a.mn, a.mask_cols);
-  }
+  dim3 grid((a.N + SIMT_BN - 1) / SIMT_BN, (a.M + 63) / 64);
+  simt_kernel<F, TX, 64, 4, 4><<<grid, SIMT_THREADS, 0, a.stream>>>(
+      x, a.w, a.scales, a.mask, a.out, a.M, a.K, a.N, a.Np, a.group, a.mk,
+      a.mn, a.mask_cols);
   return cudaGetLastError();
 }
 
@@ -226,7 +259,9 @@ constexpr int SPLIT_THREADS = 128;
 constexpr int FOLD_BATCH = 16;    // chunks whose partials load in one round trip
 
 // Route codes shared with kernels/rmmec_matmul.py (ROUTES).
-enum Route { ROUTE_SIMT = 0, ROUTE_SPLIT_K = 1, ROUTE_TILE64 = 2, ROUTE_TILE128 = 3 };
+enum Route {
+  ROUTE_SIMT = 0, ROUTE_SPLIT_K = 1, ROUTE_TILE64 = 2, ROUTE_TILE128 = 3, ROUTE_STREAM = 4
+};
 
 struct Operands {
   const bf16* x;
@@ -716,21 +751,640 @@ cudaError_t launch_tensor(const Operands& op, int route, cudaStream_t stream) {
   return launch_tile<BITS, Tile64>(op, stream);
 }
 
+// ===========================================================================
+// streaming route (M <= 16: f32 x with any format, posit16 with any x)
+// ===========================================================================
+
+constexpr int STREAM_THREADS = 256;      // threads of a narrow block
+constexpr int WARP_COLS = 32;            // columns of a warp strip (stream_kernel)
+constexpr int WIDE_THREADS = 256;        // a stream_kernel block: eight warp strips
+constexpr int WIDE_LDW = WARP_COLS + 4;  // row stride of a warp's decoded rows
+constexpr int WIDE_BN = WIDE_THREADS / 32 * WARP_COLS;
+constexpr int NARROW_MAX_BN = 128;       // widest block strip (stream_narrow_kernel)
+constexpr int STREAM_FLOATS = 2048;      // decoded weights of a narrow chunk
+constexpr int STREAM_MAX_ROWS = 256;     // K rows of a narrow chunk at most
+constexpr int STREAM_X = 1024;           // x values of a narrow chunk at most
+constexpr int STREAM_PAD = 4;            // floats after each decoded row
+constexpr int STREAM_BUF = STREAM_FLOATS + STREAM_PAD * STREAM_MAX_ROWS;
+constexpr int LIVE_SLOTS = 8;            // verdicts of a narrow chunk
+constexpr int STREAM_SETS = 6;           // ring slots of the narrow kernel
+
+// The decode table in shared memory: the wrapper's entries (stream_table),
+// each replicated so that every lane of a phase reads its own copy
+// (4-byte entries: 32 copies, 8-byte entries: 16).  posit16: an entry
+// (base, mul) per high byte of the code; 8 bits: a value a code; 4 bits: a
+// byte's two values, low nibble first.
+template <int BITS>
+struct StreamTable {
+  static constexpr int ENTRIES = 256;
+  static constexpr int WORDS = BITS == 8 ? 1 : 2;   // uint32 words an entry
+  static constexpr int COPIES = 32 / WORDS;
+  static constexpr int BYTES = ENTRIES * COPIES * WORDS * 4;
+};
+
+struct StreamOps {
+  const void* x;
+  const uint32_t* w;
+  const float* scales;
+  const int* mask;
+  float* out;
+  const uint32_t* table;
+  int M, K, N, Np, group, mk, mn, mask_cols, bn;
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// Copies the wrapper's table into shared memory, each entry COPIES times,
+// with NT threads: eight loads of a thread before their stores.
+template <int BITS, int NT>
+__device__ __forceinline__ void fill_table(uint32_t* lut, const uint32_t* table) {
+  using T = StreamTable<BITS>;
+  constexpr int PER4 = 4 / T::WORDS;  // entry copies in 16 bytes
+  constexpr int N4 = T::BYTES / 16, BATCH = 8;
+  for (int i0 = 0; i0 < N4; i0 += BATCH * NT) {
+    uint2 v[BATCH];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int i = i0 + threadIdx.x + j * NT, e = i * PER4 / T::COPIES;
+      if (i < N4) {
+        if constexpr (T::WORDS == 1) {
+          v[j].x = v[j].y = __ldg(table + e);
+        } else {
+          v[j] = __ldg(reinterpret_cast<const uint2*>(table) + e);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int i = i0 + threadIdx.x + j * NT;
+      if (i < N4) {
+        reinterpret_cast<uint4*>(lut)[i] = T::WORDS == 1 ? make_uint4(v[j].x, v[j].x, v[j].x, v[j].x)
+                                                          : make_uint4(v[j].x, v[j].y, v[j].x, v[j].y);
+      }
+    }
+  }
+}
+
+// A posit16 code the table does not cover, decoded in full (out of line: it
+// is rare, and eight inlined copies a piece would crowd the instruction
+// cache).
+__device__ __noinline__ float posit16_full(uint32_t code) { return Posit<16, 1>::decode(code); }
+
+// 8 bytes of shared memory at a shared-space address.
+__device__ __forceinline__ uint2 lds_u2(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr));
+  return v;
+}
+
+// The values of one 16-byte piece of packed words (128 / BITS codes), from
+// the lane's copy `cp` of the table.
+template <int BITS>
+__device__ __forceinline__ void decode_piece(const uint32_t* lut, int cp, uint4 raw,
+                                             float (&v)[128 / BITS]) {
+  const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
+  if constexpr (BITS == 16) {
+    // the code's high byte picks (base, mul), the value bits are
+    // base + sx * mul with sx the code sign-extended; mul 0 marks a code
+    // decoded in full
+    const uint32_t base = smem_addr(lut) + cp * 8;  // the lane's copy of entry 0
+    int sx[8];
+    uint32_t mul[8], low = 0xffffffffu;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t w = w4[j / 2];
+      sx[j] = j & 1 ? static_cast<int>(w) >> 16 : static_cast<int>(static_cast<int16_t>(w & 0xffffu));
+      const uint2 e = lds_u2(base + ((j & 1 ? w >> 24 : __byte_perm(w, 0u, 0x4441u)) << 7));
+      v[j] = __uint_as_float(static_cast<uint32_t>(sx[j]) * e.y + e.x);
+      mul[j] = e.y;
+      low = min(low, e.y);
+    }
+    if (low == 0u) {  // zero, NaR or a regime run of 7 or more
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (mul[j] == 0u) v[j] = posit16_full(static_cast<uint32_t>(sx[j]) & 0xffffu);
+    }
+  } else if constexpr (BITS == 8) {
+    const uint32_t* l = lut + cp;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = __uint_as_float(l[__byte_perm(w4[j / 4], 0u, 0x4440u + j % 4) * 32]);
+  } else {
+    const uint2* lut2 = reinterpret_cast<const uint2*>(lut) + cp;
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      const uint2 e = lut2[__byte_perm(w4[b / 4], 0u, 0x4440u + b % 4) * 16];
+      v[2 * b] = __uint_as_float(e.x);
+      v[2 * b + 1] = __uint_as_float(e.y);
+    }
+  }
+}
+
+// The P values v of columns n .. n + P - 1 (of Np) in row k, times the
+// row's group scales (rounded to f32, as simt_kernel's decode).
+template <int P>
+__device__ __forceinline__ void group_scale(const StreamOps& op, int k, int n, bool svec,
+                                            float (&v)[P]) {
+  const float* srow = op.scales + (size_t)(k / op.group) * op.Np + n;
+#pragma unroll
+  for (int q = 0; q < P / 4; ++q) {
+    const int c0 = n + 4 * q;
+    float4 s4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (svec) {
+      if (c0 < op.Np) s4 = __ldg(reinterpret_cast<const float4*>(srow + 4 * q));
+    } else {
+      if (c0 < op.Np) s4.x = __ldg(srow + 4 * q);
+      if (c0 + 1 < op.Np) s4.y = __ldg(srow + 4 * q + 1);
+      if (c0 + 2 < op.Np) s4.z = __ldg(srow + 4 * q + 2);
+      if (c0 + 3 < op.Np) s4.w = __ldg(srow + 4 * q + 3);
+    }
+    v[4 * q] = __fmul_rn(v[4 * q], s4.x);
+    v[4 * q + 1] = __fmul_rn(v[4 * q + 1], s4.y);
+    v[4 * q + 2] = __fmul_rn(v[4 * q + 2], s4.z);
+    v[4 * q + 3] = __fmul_rn(v[4 * q + 3], s4.w);
+  }
+}
+
+// simt_kernel's verdict on its 32-row step from k0 for its 64-column tile
+// from n0: the index of the one mask block they lie in, or -1 (live) / -2
+// (gated) from a walk over the blocks they touch.
+__device__ __forceinline__ int step_block(const StreamOps& op, int k0, int n0) {
+  const int kend = min(k0 + SIMT_BK, op.K), nend = min(n0 + SIMT_BN, op.Np);
+  const int kb0 = k0 / op.mk, kb1 = (kend - 1) / op.mk;
+  const int nb0 = n0 / op.mn, nb1 = (nend - 1) / op.mn;
+  if (kb0 == kb1 && nb0 == nb1) return kb0 * op.mask_cols + nb0;
+  for (int kb = kb0; kb <= kb1; ++kb)
+    for (int nb = nb0; nb <= nb1; ++nb)
+      if (op.mask[kb * op.mask_cols + nb] != 0) return -1;
+  return -2;
+}
+
+// acc[m] = fmaf(x[m], w, acc[m]) for the MB rows of x staged at xs
+template <int MB>
+__device__ __forceinline__ void fma_rows(float (&acc)[MB], const float* xs, float w) {
+  if constexpr (MB == 1) {
+    acc[0] = fmaf(xs[0], w, acc[0]);
+  } else if constexpr (MB == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(xs);
+    acc[0] = fmaf(a.x, w, acc[0]);
+    acc[1] = fmaf(a.y, w, acc[1]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < MB / 4; ++q) {
+      const float4 a = reinterpret_cast<const float4*>(xs)[q];
+      acc[4 * q] = fmaf(a.x, w, acc[4 * q]);
+      acc[4 * q + 1] = fmaf(a.y, w, acc[4 * q + 1]);
+      acc[4 * q + 2] = fmaf(a.z, w, acc[4 * q + 2]);
+      acc[4 * q + 3] = fmaf(a.w, w, acc[4 * q + 3]);
+    }
+  }
+}
+
+// out[m, n] of column n's sums: the per-channel scale once, at the output
+template <int MB>
+__device__ __forceinline__ void store_cols(const StreamOps& op, int n, const float (&acc)[MB]) {
+  if (n >= op.N) return;
+  const float sc = op.group == 0 ? op.scales[n] : 1.0f;
+#pragma unroll
+  for (int m = 0; m < MB; ++m)
+    if (m < op.M) op.out[(size_t)m * op.N + n] = op.group == 0 ? __fmul_rn(acc[m], sc) : acc[m];
+}
+
+// ---------------------------------------------------------------------------
+// stream_kernel: a warp per strip of 32 columns (wide N), a block of eight
+// ---------------------------------------------------------------------------
+
+// A warp's geometry and shared memory: a step is one 16-byte piece a lane,
+// LPR lanes across the strip's row, RS rows; two steps' decoded rows (row
+// stride WIDE_LDW: a phase of 8 lanes stores to 8 bank groups) and x rows.
+template <int BITS, int MB>
+struct WideWarp {
+  static constexpr int P = 128 / BITS, LPR = WARP_COLS / P, RS = 32 / LPR;
+  static constexpr int SETS = 2;  // steps whose loads are in flight
+  static constexpr int XW = (RS * MB + 31) / 32;  // x values a lane loads a step
+  static constexpr int FLOATS = 2 * RS * WIDE_LDW + 2 * RS * MB;
+};
+
+template <int BITS, int MB>
+constexpr int wide_smem() {
+  return StreamTable<BITS>::BYTES + WIDE_THREADS / 32 * WideWarp<BITS, MB>::FLOATS * 4;
+}
+
+// Each warp walks all of K in steps of RS rows: lane l loads and decodes the
+// piece (row l / LPR, columns (l % LPR) * P ..) of the step into the warp's
+// rows in shared memory, the warp syncs, and lane l sums column l over the
+// step's rows for every row of x.  Loads run SETS steps ahead in registers;
+// warps never wait on each other.
+template <int BITS, typename TX, int MB>
+__global__ void __launch_bounds__(WIDE_THREADS, BITS == 16 && MB <= 4 ? 4 : 2)
+stream_kernel(StreamOps op) {
+  using T = StreamTable<BITS>;
+  using W = WideWarp<BITS, MB>;
+  constexpr int P = W::P, PERW = 32 / BITS, RS = W::RS, LPR = W::LPR, S = W::SETS, XW = W::XW;
+  extern __shared__ __align__(16) uint8_t sm[];
+  uint32_t* lut = reinterpret_cast<uint32_t*>(sm);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, cp = lane % T::COPIES;
+  float* dw = reinterpret_cast<float*>(sm + T::BYTES) + warp * W::FLOATS;  // [2][RS][LDW]
+  float* dx = dw + 2 * RS * WIDE_LDW;                                       // [2][RS][MB]
+  fill_table<BITS, WIDE_THREADS>(lut, op.table);
+  __syncthreads();
+  const int n0 = blockIdx.x * WIDE_BN + warp * WARP_COLS;
+  if (n0 >= op.N) return;
+  const int r_l = lane / LPR, c_l = (lane % LPR) * P;  // this lane's piece of a step
+  const int nw = op.Np / PERW, wc = (n0 + c_l) / PERW, nsteps = (op.K + RS - 1) / RS;
+  const bool wvec = nw % 4 == 0 && (reinterpret_cast<uintptr_t>(op.w) & 15) == 0;
+  const bool svec = op.Np % 4 == 0 && (reinterpret_cast<uintptr_t>(op.scales) & 15) == 0;
+  const bool piece = wc < nw && n0 + c_l < op.Np;
+  const TX* x = static_cast<const TX*>(op.x);
+  // lane 0: the mask columns of the strip's gating tile (a strip of 32
+  // columns lies in one 64-column tile), once; the mask row of the current
+  // 32-row step, kept as K is walked
+  int nb0 = 0, nb1 = -1, kb = 0, kb_end = op.mk;
+  if (lane == 0) {
+    const int t = n0 - n0 % SIMT_BN;
+    nb0 = t / op.mn;
+    nb1 = (min(t + SIMT_BN, op.Np) - 1) / op.mn;
+  }
+  // steps are fetched in order: the next one's word and x addresses (past
+  // K, or past the row's words, valid ones whose loads are never used)
+  const int wcl = min(wc, wvec ? nw - 4 : nw - 1);
+  const uint32_t* wnext = op.w + (size_t)min(r_l, op.K - 1) * nw + wcl;
+  const uint32_t* wlast = op.w + (size_t)(op.K - 1) * nw + wcl;
+  const size_t wstep = (size_t)RS * nw;
+  const TX* xnext[XW];
+#pragma unroll
+  for (int i = 0; i < XW; ++i) {
+    const int e = lane + 32 * i;
+    xnext[i] = x + (size_t)min(e % MB, op.M - 1) * op.K + e / MB;
+  }
+
+  // step st's loads into register set j, none of them waited for here: the
+  // lane's piece and its x values (zeroed where they lie past K, M or the
+  // row's words when the step is staged)
+  uint4 raw[S];
+  TX xr[S][XW];
+  auto fetch = [&](int st, int j) {
+    const int k = st * RS + r_l;
+    const uint32_t* src = k < op.K ? wnext : wlast;
+    if (wvec) {
+      raw[j] = __ldg(reinterpret_cast<const uint4*>(src));
+    } else {
+      raw[j].x = __ldg(src);
+      raw[j].y = __ldg(src + (wc + 1 < nw));
+      raw[j].z = __ldg(src + 2 * (wc + 2 < nw));
+      raw[j].w = __ldg(src + 3 * (wc + 3 < nw));
+    }
+    wnext += wstep;
+#pragma unroll
+    for (int i = 0; i < XW; ++i) {
+      xr[j][i] = *(st * RS + (lane + 32 * i) / MB < op.K ? xnext[i] : x);
+      xnext[i] += RS;
+    }
+  };
+
+  float acc[MB];
+#pragma unroll
+  for (int m = 0; m < MB; ++m) acc[m] = 0.0f;
+  bool live = false;  // simt_kernel's verdict on the current 32-row step
+  // step st from register set j into buffer st & 1, then its sums
+  auto step = [&](int st, int j) {
+    const int k0 = st * RS, buf = st & 1;
+    float* bw = dw + buf * RS * WIDE_LDW;
+    float* bx = dx + buf * RS * MB;
+    if (piece && k0 + r_l < op.K) {
+      uint4 rw = raw[j];
+      if (!wvec) {
+        if (wc + 1 >= nw) rw.y = 0u;
+        if (wc + 2 >= nw) rw.z = 0u;
+        if (wc + 3 >= nw) rw.w = 0u;
+      }
+      float v[P];
+      decode_piece<BITS>(lut, cp, rw, v);
+      if (op.group > 0) group_scale<P>(op, k0 + r_l, n0 + c_l, svec, v);
+      float4* d = reinterpret_cast<float4*>(bw + r_l * WIDE_LDW + c_l);
+#pragma unroll
+      for (int q = 0; q < P / 4; ++q) d[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    }
+#pragma unroll
+    for (int i = 0; i < XW; ++i) {
+      const int e = lane + 32 * i;
+      if (e < RS * MB)
+        bx[e] = e % MB < op.M && k0 + e / MB < op.K ? to_float(xr[j][i]) : 0.0f;
+    }
+    if (k0 % SIMT_BK == 0) {  // a new 32-row step: lane 0 reads its verdict
+      int mv = 0;
+      if (nb1 >= 0) {
+        while (kb_end <= k0) ++kb, kb_end += op.mk;
+        const int klast = min(k0 + SIMT_BK, op.K) - 1;
+        for (int b = kb, e = kb_end - op.mk; e <= klast && !mv; ++b, e += op.mk)
+          for (int nb = nb0; nb <= nb1; ++nb)
+            if (op.mask[b * op.mask_cols + nb] != 0) { mv = 1; break; }
+      }
+      live = __shfl_sync(0xffffffffu, mv, 0) != 0;
+    }
+    fetch(st + S, j);
+    __syncwarp();
+    if (live) {
+      const int rows = min(RS, op.K - k0);
+      float wv[RS];  // every row's weight before the sums
+#pragma unroll
+      for (int r = 0; r < RS; ++r) wv[r] = bw[r * WIDE_LDW + lane];
+      if (rows == RS) {
+#pragma unroll
+        for (int r = 0; r < RS; ++r) fma_rows<MB>(acc, bx + r * MB, wv[r]);
+      } else {
+#pragma unroll
+        for (int r = 0; r < RS; ++r)
+          if (r < rows) fma_rows<MB>(acc, bx + r * MB, wv[r]);
+      }
+      if (k0 + rows == op.K && op.K % SIMT_BK != 0) {
+#pragma unroll
+        for (int m = 0; m < MB; ++m) acc[m] = __fadd_rn(acc[m], 0.0f);  // simt_kernel's zero rows
+      }
+    }
+  };
+
+#pragma unroll
+  for (int j = 0; j < S; ++j) fetch(j, j);
+  for (int s0 = 0; s0 < nsteps; s0 += S) {
+#pragma unroll
+    for (int j = 0; j < S; ++j)
+      if (s0 + j < nsteps) step(s0 + j, j);
+  }
+  store_cols<MB>(op, n0 + lane, acc);
+}
+
+// ---------------------------------------------------------------------------
+// stream_narrow_kernel: a block per strip of 8 .. 128 columns (narrow N)
+// ---------------------------------------------------------------------------
+
+// A ring slot: a chunk's packed words (16-byte pieces in piece order), its
+// x rows as given ([MB][kch] of TX) and its mask words.
+template <int BITS, typename TX>
+struct NarrowSlot {
+  static constexpr int WORDS = STREAM_FLOATS * BITS / 8;
+  static constexpr int X = STREAM_X * static_cast<int>(sizeof(TX));
+  static constexpr int BYTES = WORDS + X + LIVE_SLOTS * 4;
+};
+
+// shared memory: the table, two decoded chunks (weights, x as f32 rows,
+// verdicts), the ring of STREAM_SETS raw chunks
+template <int BITS, typename TX>
+constexpr int narrow_smem() {
+  return StreamTable<BITS>::BYTES + 2 * STREAM_BUF * 4 + 2 * STREAM_X * 4 + 2 * LIVE_SLOTS * 4 +
+         STREAM_SETS * NarrowSlot<BITS, TX>::BYTES;
+}
+
+// The block's 256 threads load and decode a chunk of kch rows together (a
+// ring of STREAM_SETS chunks copied with cp.async), one barrier a chunk:
+// chunk ch + 1 is decoded into shared memory while thread c < bn sums column
+// c over chunk ch, so the decode of many rows runs beside each column's
+// sequential chain.
+template <int BITS, typename TX, int MB>
+__global__ void __launch_bounds__(STREAM_THREADS, 2)
+stream_narrow_kernel(StreamOps op) {
+  using T = StreamTable<BITS>;
+  using Slot = NarrowSlot<BITS, TX>;
+  constexpr int P = 128 / BITS;   // codes of a 16-byte piece
+  constexpr int PERW = 32 / BITS;  // codes of a word
+  constexpr int DP = STREAM_FLOATS / P >= STREAM_THREADS ? STREAM_FLOATS / P / STREAM_THREADS : 1;
+  constexpr int XV = 16 / static_cast<int>(sizeof(TX));  // x values of a 16-byte piece
+  constexpr int XPER = STREAM_X / STREAM_THREADS;
+  extern __shared__ __align__(16) uint8_t sm[];
+  uint32_t* lut = reinterpret_cast<uint32_t*>(sm);
+  float* dw = reinterpret_cast<float*>(sm + T::BYTES);  // [2][STREAM_BUF] decoded rows
+  float* dx = dw + 2 * STREAM_BUF;                        // [2][rows][MB] x as f32
+  int* lv = reinterpret_cast<int*>(dx + 2 * STREAM_X);   // [2][LIVE_SLOTS]
+  uint8_t* ring = reinterpret_cast<uint8_t*>(lv + 2 * LIVE_SLOTS);  // [SETS][Slot::BYTES]
+
+  const int tid = threadIdx.x, cp = tid % T::COPIES;
+  const int bn = op.bn, n0 = blockIdx.x * bn, ldw = bn + STREAM_PAD;
+  // a power of two >= 16
+  const int kch = min(min(STREAM_MAX_ROWS, STREAM_FLOATS / bn), STREAM_X / MB);
+  const int gbits = __ffs(bn / P) - 1;  // log2 of the pieces of a row
+  const int pieces = kch * (bn / P);
+  const int nw = op.Np / PERW, nchunks = (op.K + kch - 1) / kch;
+  const int tn0 = n0 - n0 % SIMT_BN;    // first gating tile of the strip
+  const int ntiles = (n0 % SIMT_BN + bn + SIMT_BN - 1) / SIMT_BN;
+  const int nseg = (kch + SIMT_BK - 1) / SIMT_BK;
+  const bool wvec = nw % 4 == 0 && (reinterpret_cast<uintptr_t>(op.w) & 15) == 0;
+  const bool xvec = op.K % XV == 0 && (reinterpret_cast<uintptr_t>(op.x) & 15) == 0;
+  const bool svec = op.Np % 4 == 0 && (reinterpret_cast<uintptr_t>(op.scales) & 15) == 0;
+  const TX* x = static_cast<const TX*>(op.x);
+
+  // piece p of a chunk: rows in groups of 8 (a phase of 8 lanes, 8 rows),
+  // then the row's pieces, then the groups; thread t takes pieces from
+  // (t - bn) mod 256 on, so that the summing threads (t < bn) decode last
+  auto piece_row = [&](int p) { return (p >> (3 + gbits)) * 8 + (p & 7); };
+  auto piece_col = [&](int p) { return ((p >> 3) & ((1 << gbits) - 1)) * P; };
+  const int pt = (tid + STREAM_THREADS - bn) % STREAM_THREADS;
+
+  // chunk ch into ring slot ch % SETS, one cp.async group (copies where
+  // aligned and whole, plain loads otherwise): this thread's pieces, 16-byte
+  // pieces of x's rows, the mask words of the verdicts
+  auto fetch = [&](int ch) {
+    uint8_t* slot = ring + (ch % STREAM_SETS) * Slot::BYTES;
+    const int k0 = ch * kch;
+    if (ch < nchunks) {
+#pragma unroll
+      for (int i = 0; i < DP; ++i) {
+        const int p = pt + i * STREAM_THREADS;
+        const int k = k0 + piece_row(p), wc = (n0 + piece_col(p)) / PERW;
+        if (p < pieces && k < op.K && wc < nw) {
+          const uint32_t* src = op.w + (size_t)k * nw + wc;
+          uint4* dst = reinterpret_cast<uint4*>(slot) + p;
+          if (wvec) {
+            cp_async16(dst, src);
+          } else {
+            uint4 v = make_uint4(__ldg(src), 0u, 0u, 0u);
+            if (wc + 1 < nw) v.y = __ldg(src + 1);
+            if (wc + 2 < nw) v.z = __ldg(src + 2);
+            if (wc + 3 < nw) v.w = __ldg(src + 3);
+            *dst = v;
+          }
+        }
+      }
+      TX* xs = reinterpret_cast<TX*>(slot + Slot::WORDS);  // [MB][kch]
+      const int xp = kch / XV;                              // pieces of a row
+      for (int e = tid; e < MB * xp; e += STREAM_THREADS) {
+        const int m = e / xp, r = (e % xp) * XV, k = k0 + r;
+        if (m < op.M && k < op.K) {
+          const TX* src = x + (size_t)m * op.K + k;
+          if (xvec && k + XV <= op.K) {
+            cp_async16(xs + m * kch + r, src);
+          } else {
+#pragma unroll
+            for (int j = 0; j < XV; ++j)
+              if (k + j < op.K) xs[m * kch + r + j] = src[j];
+          }
+        }
+      }
+      if (tid < nseg * ntiles) {
+        int* vw = reinterpret_cast<int*>(slot + Slot::WORDS + Slot::X);
+        const int k = (k0 & ~(SIMT_BK - 1)) + (tid / ntiles) * SIMT_BK;
+        const int b = k < op.K ? step_block(op, k, tn0 + (tid % ntiles) * SIMT_BN) : -2;
+        if (b >= 0)
+          cp_async4(vw + tid, op.mask + b);
+        else
+          vw[tid] = b == -1;
+      }
+    }
+    cp_async_commit();
+  };
+
+  // chunk ch from its ring slot into buffer buf: decoded weights (times the
+  // group scale), x rows as f32 (k-major), verdicts
+  auto stage = [&](int ch, int buf) {
+    const uint8_t* slot = ring + (ch % STREAM_SETS) * Slot::BYTES;
+    const int k0 = ch * kch, rows = min(kch, op.K - k0);
+#pragma unroll
+    for (int i = 0; i < DP; ++i) {
+      const int p = pt + i * STREAM_THREADS;
+      const int r = piece_row(p), col = piece_col(p);
+      if (p < pieces && r < rows && n0 + col < op.Np) {
+        float v[P];
+        decode_piece<BITS>(lut, cp, reinterpret_cast<const uint4*>(slot)[p], v);
+        if (op.group > 0) group_scale<P>(op, k0 + r, n0 + col, svec, v);
+        float4* dst = reinterpret_cast<float4*>(dw + buf * STREAM_BUF + r * ldw + col);
+#pragma unroll
+        for (int q = 0; q < P / 4; ++q)
+          dst[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+      }
+    }
+    // x: rows m of the slot to rows k of dx (only m < M, r < rows are read)
+    const TX* xs = reinterpret_cast<const TX*>(slot + Slot::WORDS);
+#pragma unroll
+    for (int i = 0; i < XPER; ++i) {
+      const int e = tid + i * STREAM_THREADS, m = e / kch, r = e % kch;
+      if (m < MB) dx[buf * STREAM_X + r * MB + m] = to_float(xs[m * kch + r]);
+    }
+    if (tid < nseg * ntiles)
+      lv[buf * LIVE_SLOTS + tid] = reinterpret_cast<const int*>(slot + Slot::WORDS + Slot::X)[tid];
+  };
+
+  // column c's chain over chunk ch's rows, for every row of x
+  const int c = tid, ctile = (n0 % SIMT_BN + c) / SIMT_BN;
+  float acc[MB];
+#pragma unroll
+  for (int m = 0; m < MB; ++m) acc[m] = 0.0f;
+  auto chain = [&](int ch, int buf) {
+    if (c >= bn) return;
+    const int k0 = ch * kch, rows = min(kch, op.K - k0);
+    const float* wcol = dw + buf * STREAM_BUF + c;
+    const float* xr = dx + buf * STREAM_X;
+    for (int s0 = 0; s0 < rows; s0 += SIMT_BK) {
+      if (lv[buf * LIVE_SLOTS + (s0 / SIMT_BK) * ntiles + ctile] == 0) continue;
+      const int s1 = min(s0 + SIMT_BK, rows);
+      int r = s0;
+      for (; r + 8 <= s1; r += 8) {  // eight rows' loads before their sums
+        float wv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) wv[i] = wcol[(r + i) * ldw];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) fma_rows<MB>(acc, xr + (r + i) * MB, wv[i]);
+      }
+      for (; r < s1; ++r) fma_rows<MB>(acc, xr + r * MB, wcol[r * ldw]);
+      if (k0 + s1 == op.K && op.K % SIMT_BK != 0) {
+#pragma unroll
+        for (int m = 0; m < MB; ++m) acc[m] = __fadd_rn(acc[m], 0.0f);  // simt_kernel's zero rows
+      }
+    }
+  };
+
+  // STREAM_SETS chunks in flight: chunk ch + SETS is copied while chunk
+  // ch + 1 is staged and chunk ch summed
+#pragma unroll
+  for (int j = 0; j < STREAM_SETS; ++j) fetch(j);
+  fill_table<BITS, STREAM_THREADS>(lut, op.table);
+  cp_async_wait_group<STREAM_SETS - 1>();
+  __syncthreads();
+  stage(0, 0);
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_async_wait_group<STREAM_SETS - 2>();
+    // chunk ch + 1 landed and chunk ch staged; every thread is done with
+    // chunk ch - 1's buffer and with the slot of chunk ch
+    __syncthreads();
+    fetch(ch + STREAM_SETS);
+    if (ch + 1 < nchunks) stage(ch + 1, (ch + 1) & 1);
+    chain(ch, ch & 1);
+  }
+  cp_async_wait_all();
+  if (c < bn) store_cols<MB>(op, n0 + c, acc);
+}
+
+// Once per kernel and process: the dynamic shared memory it needs.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem, bool& allowed) {
+  if (allowed) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  allowed = err == cudaSuccess;
+  return err;
+}
+
+template <int BITS, typename TX, int MB>
+cudaError_t launch_stream_rows(const StreamOps& op, cudaStream_t stream) {
+  if (op.bn == WIDE_BN) {
+    constexpr int smem = wide_smem<BITS, MB>();
+    static bool allowed = false;
+    const cudaError_t err = allow_smem(stream_kernel<BITS, TX, MB>, smem, allowed);
+    if (err != cudaSuccess) return err;
+    stream_kernel<BITS, TX, MB><<<(op.N + WIDE_BN - 1) / WIDE_BN, WIDE_THREADS, smem, stream>>>(op);
+  } else {
+    constexpr int smem = narrow_smem<BITS, TX>();
+    static bool allowed = false;
+    const cudaError_t err = allow_smem(stream_narrow_kernel<BITS, TX, MB>, smem, allowed);
+    if (err != cudaSuccess) return err;
+    stream_narrow_kernel<BITS, TX, MB><<<(op.N + op.bn - 1) / op.bn, STREAM_THREADS, smem, stream>>>(op);
+  }
+  return cudaGetLastError();
+}
+
+template <int BITS, typename TX>
+cudaError_t launch_stream(const StreamOps& op, cudaStream_t stream) {
+  if (op.M <= 1) return launch_stream_rows<BITS, TX, 1>(op, stream);
+  if (op.M <= 2) return launch_stream_rows<BITS, TX, 2>(op, stream);
+  if (op.M <= 4) return launch_stream_rows<BITS, TX, 4>(op, stream);
+  if (op.M <= 8) return launch_stream_rows<BITS, TX, 8>(op, stream);
+  return launch_stream_rows<BITS, TX, 16>(op, stream);
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // a format this library has no decoder for or a route that cannot take the
 // call (the tensor routes: bf16 x, <= 8 bits and the format's decode table;
-// split-K: M <= 16, with scratch and counters when K > KC).
+// split-K: M <= 16, with scratch and counters when K > KC; the streaming
+// route: M <= 16, the format's stream table, a strip of WIDE_BN (warp
+// strips, stream_kernel) or a power-of-two multiple of a 16-byte piece's
+// codes up to NARROW_MAX_BN (stream_narrow_kernel), f32 x with a format of
+// <= 8 bits or posit16 with any x).  `strip` is read by the streaming route
+// only.
 extern "C" int rmmec_matmul(const void* x, int x_bf16, const void* words,
                             const void* scales, const void* mask, void* out,
                             void* scratch, void* counters, const void* table, int M,
                             int K, int N, int Np, int group, int mk, int mn,
-                            int mask_cols, int route, int kind, int bits, int es,
-                            int ebits, int mbits, int has_nan, int frac_bits,
+                            int mask_cols, int route, int strip, int kind, int bits,
+                            int es, int ebits, int mbits, int has_nan, int frac_bits,
                             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (route == ROUTE_STREAM) {
+    const bool p16 = bits == 16 && kind == KIND_POSIT && es == 1;
+    if (!table || M < 1 || M > SPLIT_M || (!p16 && (x_bf16 || (bits != 4 && bits != 8))) ||
+        (strip != WIDE_BN &&
+         (strip < 128 / bits || strip > NARROW_MAX_BN || (strip & (strip - 1)))))
+      return invalid;
+    const StreamOps op{x, static_cast<const uint32_t*>(words), static_cast<const float*>(scales),
+                       static_cast<const int*>(mask), static_cast<float*>(out),
+                       static_cast<const uint32_t*>(table), M, K, N, Np, group, mk, mn,
+                       mask_cols, strip};
+    if (p16) return static_cast<int>(x_bf16 ? launch_stream<16, bf16>(op, st)
+                                            : launch_stream<16, float>(op, st));
+    return static_cast<int>(bits == 4 ? launch_stream<4, float>(op, st)
+                                      : launch_stream<8, float>(op, st));
+  }
   if (route != ROUTE_SIMT) {
     if (!x_bf16 || !table || (bits != 4 && bits != 8) || route > ROUTE_TILE128 ||
         (route == ROUTE_SPLIT_K && (M > SPLIT_M || (K > KC && (!scratch || !counters)))))

@@ -15,7 +15,11 @@ shapes and types alone (nothing is read back from the card):
     in chunk order, by ``split_k`` (M <= 16: a block per 64-column N-tile
     and chunk, the last block of a tile to arrive folds) or by ``tile64`` /
     ``tile128`` (a block per output tile walks its chunks);
-  - f32 x, or posit16 with any x, goes to ``simt``, an f32 FMA loop.
+  - f32 x, or posit16 with any x (every untied read-out), goes to a
+    sequential f32 FMA loop over K: ``stream`` for M <= 16 (a warp per
+    strip of 32 columns walks K, or for narrow N a block per strip of
+    ``stream_strip`` columns; codes decoded through ``stream_table``, a
+    thread per column sums), ``simt`` above.
 
 Either way a row's output is bitwise the same whatever M is and whatever
 the other rows hold.  On the tensor route the decoded weight is exact in
@@ -39,7 +43,8 @@ from . import _build, fake
 from . import ref
 
 __all__ = ["rmmec_matmul", "rmmec_matmul_plain", "default_blocks",
-           "launch_plan", "LaunchPlan", "chunk_bounds", "decode_table", "KC"]
+           "launch_plan", "LaunchPlan", "chunk_bounds", "decode_table",
+           "stream_table", "stream_strip", "stream_route", "KC"]
 
 KIND = {"posit": 0, "minifloat": 1, "fixed": 2}
 
@@ -48,10 +53,17 @@ KC = 128                       # K rows of a chunk partial
 SPLIT_K_MAX_M = 16             # most rows of the split-K route
 SPLIT_BN = 64                  # columns of a split-K N-tile
 SPLIT_THREADS = 128
-ROUTES = {"simt": 0, "split_k": 1, "tile64": 2, "tile128": 3}
+ROUTES = {"simt": 0, "split_k": 1, "tile64": 2, "tile128": 3, "stream": 4}
 # route -> (rows, columns, threads) of a block's output tile
 TILES = {"tile64": (64, 64, 256), "tile128": (128, 128, 256)}
 SIMT_BN = 64
+SIMT_ROWS = 64                 # x rows of a SIMT block (M > 16)
+STREAM_THREADS = 256           # threads of a narrow block
+WARP_COLS = 32                 # columns of a warp strip (stream_kernel)
+WIDE_THREADS = 256             # a stream_kernel block: eight warp strips
+WIDE_BN = WIDE_THREADS // 32 * WARP_COLS
+NARROW_MAX_BN = 128            # widest block strip (stream_narrow_kernel)
+STREAM_NARROW = 2              # narrow strips per SM aimed at
 COUNTER_SLOTS = 1 << 14        # split-K N-tiles a call may have
 H100_SMS = 132
 
@@ -87,19 +99,45 @@ def _cdiv(a: int, b: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """What one call launches: the route, its grid (x, y) and threads a
-    block, the chunk partials' K ranges (empty on the SIMT route), and the
+    block, the chunk partials' K ranges (empty on the f32 FMA routes), the
     scratch floats and counters of a split-K fold (0 when nothing folds
-    across blocks)."""
+    across blocks), and the columns of a streaming strip (0 elsewhere)."""
     route: str
     grid: Tuple[int, int]
     threads: int
     chunks: Tuple[Tuple[int, int], ...]
     scratch_floats: int
     counters: int
+    strip: int = 0
 
     @property
     def scratch_bytes(self) -> int:
         return 4 * self.scratch_floats
+
+
+def stream_strip(n: int, bits: int, sms: int = H100_SMS) -> int:
+    """Columns of a streaming block for N = ``n`` and ``bits``-bit codes.
+    ``WIDE_BN`` (stream_kernel: 8 warps, a strip of 32 columns each) where
+    that gives a block per SM or more; else a block strip for
+    stream_narrow_kernel: the widest power of two up to ``NARROW_MAX_BN``
+    that gives ``STREAM_NARROW`` blocks per SM, and at least one 16-byte
+    piece of codes (8 posit16, 16 of 8 bits, 32 of 4 bits)."""
+    if _cdiv(n, WIDE_BN) >= sms:
+        return WIDE_BN
+    bn = NARROW_MAX_BN
+    while bn > 128 // bits and _cdiv(n, bn) < STREAM_NARROW * sms:
+        bn //= 2
+    return bn
+
+
+def stream_route(m: int, x_dtype: torch.dtype, bits: int) -> bool:
+    """Whether x (m, K) of ``x_dtype`` times ``bits``-bit codes takes the
+    streaming route; ``stream_route.launches`` counts its launches beside
+    the wrapper's own count."""
+    return m <= SPLIT_K_MAX_M and (x_dtype != torch.bfloat16 or bits > 8)
+
+
+stream_route.launches = 0
 
 
 def launch_plan(m: int, k: int, n: int, x_dtype: torch.dtype, bits: int,
@@ -107,10 +145,13 @@ def launch_plan(m: int, k: int, n: int, x_dtype: torch.dtype, bits: int,
     """The launch of x (m, k) @ W (k, n) for x of ``x_dtype`` and a format
     of ``bits`` bits on a card of ``sms`` SMs (mirrors the C entry point's
     grids).  128 x 128 tiles only where they fill half the card or more."""
+    if stream_route(m, x_dtype, bits):
+        bn = stream_strip(n, bits, sms)
+        threads = WIDE_THREADS if bn == WIDE_BN else STREAM_THREADS
+        return LaunchPlan("stream", (_cdiv(n, bn), 1), threads, (), 0, 0, bn)
     if x_dtype != torch.bfloat16 or bits > 8:
-        rows = 8 if m <= 32 else 64
-        return LaunchPlan("simt", (_cdiv(n, SIMT_BN), _cdiv(m, rows)), 256,
-                          (), 0, 0)
+        return LaunchPlan("simt", (_cdiv(n, SIMT_BN), _cdiv(m, SIMT_ROWS)),
+                          256, (), 0, 0)
     chunks = chunk_bounds(k)
     if m <= SPLIT_K_MAX_M:
         tiles = _cdiv(n, SPLIT_BN)
@@ -128,7 +169,7 @@ def launch_plan(m: int, k: int, n: int, x_dtype: torch.dtype, bits: int,
 
 _ARGTYPES = {
     "rmmec_matmul": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 16 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 17 + [ctypes.c_void_p],
 }
 
 # one split-K arrival counter per N-tile, per device: zeroed once; each
@@ -170,6 +211,58 @@ def decode_table(spec: FormatSpec, device) -> torch.Tensor:
             bits = bits[i & 15] | (bits[i >> 4] << 16)
         t = bits.contiguous()
         _TABLES[key] = t
+    return t
+
+
+_STREAM_TABLES: Dict[Tuple[torch.device, str], torch.Tensor] = {}
+
+
+def _f32_bits(v: torch.Tensor) -> torch.Tensor:
+    """The bits of float32 values as non-negative int64."""
+    return v.to(torch.float32).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def stream_table(spec: FormatSpec, device) -> torch.Tensor:
+    """The streaming route's decode table, int32, made on ``device`` by the
+    port's codec once per format and device.
+
+    Formats of 8 bits: 256 entries, code i's f32 bits.  4 bits: 256 x 2,
+    the f32 bits of byte i's two codes (low nibble first).  posit16: 256 x
+    2 entries (base, mul) over the code's high byte b: the code's value
+    bits are ``(base + sx * mul) mod 2**32``, sx the code sign-extended,
+    wherever the regime run is <= 6.  For b < 128 (sx = mag in [256 b, 256
+    b + 255]) ``mul`` is the f32 step of one unit of the low 8 bits of the
+    magnitude and ``base`` comes from the value of 256 b; for b >= 128
+    the magnitudes are 256 h + 1 .. 256 h + 256 with h = 255 - b, so
+    ``mul`` is minus h's step and ``base`` h's base plus the sign bit (the
+    last magnitude, the first of the next regime, is one step past h's
+    last value, which the value line meets exactly).  b = 0 and 255 (runs
+    of 7 or more zeros, zero), 127 and 128 (runs of 7 or more ones, NaR)
+    hold ``mul`` 0, which the kernel decodes in full."""
+    key = (torch.device(device), spec.name)
+    t = _STREAM_TABLES.get(key)
+    if t is None:
+        if spec.bits == 16:
+            mag = torch.arange(1 << 15, device=device)
+            bits = _f32_bits(codec_mod.decode(spec, mag))
+            h = torch.arange(128, device=device)
+            mul = (bits[(h << 8) + 1] - bits[h << 8]) & 0xFFFFFFFF
+            base = (bits[h << 8] - (h << 8) * mul) & 0xFFFFFFFF
+            t = torch.zeros((256, 2), dtype=torch.int64, device=device)
+            t[:128, 0], t[:128, 1] = base, mul
+            t[128:, 0] = (base.flip(0) + (1 << 31)) & 0xFFFFFFFF
+            t[128:, 1] = (-mul.flip(0)) & 0xFFFFFFFF
+            t[[0, 127, 128, 255]] = 0
+        else:
+            bits = _f32_bits(codec_mod.decode(
+                spec, torch.arange(1 << spec.bits, device=device)))
+            if spec.bits == 4:
+                i = torch.arange(256, device=device)
+                bits = torch.stack([bits[i & 15], bits[i >> 4]], dim=-1)
+            t = bits
+        t = torch.where(t >= 1 << 31, t - (1 << 32), t).to(
+            torch.int32).contiguous()
+        _STREAM_TABLES[key] = t
     return t
 
 
@@ -237,7 +330,9 @@ def rmmec_matmul(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor,
     plan = launch_plan(m, k, n, x.dtype, spec.bits, _sms(x.device))
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     scratch = counters = table = None
-    if plan.route != "simt":
+    if plan.route == "stream":
+        table = stream_table(spec, x.device)
+    elif plan.route != "simt":
         table = decode_table(spec, x.device)
     if plan.counters:
         if plan.counters > COUNTER_SLOTS:
@@ -253,12 +348,14 @@ def rmmec_matmul(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor,
         None if counters is None else counters.data_ptr(),
         None if table is None else table.data_ptr(), m, k, n, np_,
         group, kp // mask.shape[0], np_ // mask.shape[1], mask.shape[1],
-        ROUTES[plan.route], KIND[spec.kind], spec.bits, spec.es, spec.ebits,
-        spec.mbits, int(spec.has_nan), spec.frac_bits,
+        ROUTES[plan.route], plan.strip, KIND[spec.kind], spec.bits, spec.es,
+        spec.ebits, spec.mbits, int(spec.has_nan), spec.frac_bits,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rmmec_matmul launch failed: CUDA error {err}")
     rmmec_matmul.launches += 1
+    if plan.route == "stream":
+        stream_route.launches += 1
     return out
 
 

@@ -150,8 +150,8 @@ def test_kernel_vs_plain_on_card(cuda, name, group, stacked):
 @pytest.mark.parametrize("xdtype", ["bfloat16", "float32"])
 def test_kernel_rows_bitwise_on_card(cuda, name, group, xdtype):
     """A row's output is bitwise the same whatever M is (split-K, 64- and
-    128-row tiles, the SIMT kernel) and whatever the other rows hold, at a
-    K that is not a multiple of the 128-row chunk."""
+    128-row tiles, the streaming and SIMT kernels) and whatever the other
+    rows hold, at a K that is not a multiple of the 128-row chunk."""
     w = torch.from_numpy(_weight((1100, 4864), 9, zero_rows=512))
     t = tops.pack_tensor(tfmt.FORMATS[name], w.to(cuda), group_size=group)
     x = torch.randn(1024, 1100, device=cuda).to(getattr(torch, xdtype))
