@@ -19,7 +19,13 @@ Phases, each of which fails the run (non-zero exit) on any miss:
      posit16 weight with one gated block and f32 x with FP4 and posit8),
      every posit16 code decoded by the streaming kernel bitwise as by
      simt_kernel and the plain version, times of one layer's seven
-     projections at M=8, 256 and 1024;
+     projections at M=8, 256 and 1024; the wgmma route (M > 16): rows of
+     every route bitwise at qwen2's shapes and with gated chunks at K =
+     1152, and one layer of qwen2-0.5b and gemma-2b (M = 256, 1024) and
+     command-r-plus-104b (M = 256) at full width timed on wgmma_kernel and
+     tile_kernel (each forced) beside the plan's route, torch.matmul and
+     the bound, their rows bitwise each other's, and the projections the
+     plan sent to the slower of the two;
      and ``flash_decode`` (qwen2-0.5b's B=8, Kh=2, G=7, Dh=64 over T=256
      slots, with pad and softcap; and over caches of 100, 66 and 67 slots,
      whose KV blocks are 4, 2 and 1 slots);
@@ -27,7 +33,10 @@ Phases, each of which fails the run (non-zero exit) on any miss:
      (24 layers, d=896, vocab 151936) with the paper's mixed posit8/FP4
      policy and a posit8 KV cache, random weights from a seed, batch 8,
      prompt 128, 32 greedy steps; the launch counters must show every
-     projection and every decode attention went through the kernels;
+     projection and every decode attention went through the kernels, and
+     q/o/gate/up/down of the prefill (M = 1024) the wgmma route: 120
+     launches (``wgmma_route.launches``); the static prefill is timed on
+     the plan's routes and on the tiles alone;
   4. the reduced config (float32) served on the card and on the CPU
      (plain versions) from the same weights: logits and tokens must agree,
      also at max_len 100 and 66 (KV blocks of 4 and 2 slots) and at
@@ -77,7 +86,8 @@ and, for the recurrent, hybrid and MoE families (posit8 state slabs):
 
   3d. rwkv6-1.6b at full width and ``RWKV_DEPTH`` = 12 of its 24
       layers (d=2048, vocab 65536; cut from full size to keep the
-      script under 900 s with phase 8),
+      script well inside its time limit with phase 8 and phase 2's
+      wgmma timings),
       ``paper_mixed``, 8 requests of 64-256 prompt tokens and 32 new
       ones, 128-token chunks: per-request static ``generate`` with
       posit8 state, ``ContinuousEngine`` at K=1 and K=4, K=1 on 3 state
@@ -353,7 +363,7 @@ FLASH_ATOL = 1e-4   # outputs are O(1) averages of V; exp/tanh and sum order
 
 def _rmmec_case(spec, group, m, k, n, stacked, zero_block, gen, fails):
     from repro_torch.kernels.ops import pack_tensor
-    from repro_torch.kernels.rmmec_matmul import (default_blocks, launch_plan,
+    from repro_torch.kernels.rmmec_matmul import (call_plan, default_blocks,
                                                   rmmec_matmul,
                                                   rmmec_matmul_plain)
     w = torch.randn((2, k, n) if stacked else (k, n), generator=gen,
@@ -375,7 +385,7 @@ def _rmmec_case(spec, group, m, k, n, stacked, zero_block, gen, fails):
     err = (got - want).abs().max().item()
     ref = want.abs().max().item()
     ok = err <= RMMEC_RTOL * ref and torch.isfinite(got).all().item()
-    route = launch_plan(m, k, n, x.dtype, spec.bits).route
+    route = call_plan(x, t.words, t.spec, n).route
     tag = (f"{spec.name:9s} g={str(group):4s} M={m:5d} K={k:5d} N={n:5d} "
            f"{'stacked' if stacked else '2-D':7s} mask={tuple(t.mask.shape)}"
            f" gated={int((t.mask == 0).sum())} route={route}")
@@ -401,15 +411,26 @@ def _rmmec_times(x, t):
     return ms, plain, lib, nbytes, 2.0 * m * k * n
 
 
-def _rmmec_rows(spec, group, k, n, stacked, zero_block, xdtype, gen, fails):
+def _rmmec_rows(spec, group, k, n, stacked, zero_block, xdtype, gen, fails,
+                route=None):
     """Bitwise row invariance: rows of an M=1024 call equal the same rows
     of M=256, 16, 8, 3 and 1 calls (other routes, other tiles), and rows
     equal themselves among other rows of random content; the M=8 call
     within ``RMMEC_RTOL`` of the plain version.  ``zero_block``: True
     zeros the 2-D layout's first K block of rows, "block" its first mask
-    block only.  Returns the M=8 call's error."""
+    block only.  ``route`` "wgmma": its calls above 16 rows on the wgmma
+    route wherever it can go (``_on_route``).  Returns the M=8 call's
+    error."""
+    import contextlib
+    with _on_route(route) if route else contextlib.nullcontext():
+        return _rmmec_rows_on(spec, group, k, n, stacked, zero_block, xdtype,
+                              gen, fails, route)
+
+
+def _rmmec_rows_on(spec, group, k, n, stacked, zero_block, xdtype, gen, fails,
+                   route):
     from repro_torch.kernels.ops import pack_tensor
-    from repro_torch.kernels.rmmec_matmul import (default_blocks, launch_plan,
+    from repro_torch.kernels.rmmec_matmul import (call_plan, default_blocks,
                                                   rmmec_matmul,
                                                   rmmec_matmul_plain)
     w = torch.randn((2, k, n) if stacked else (k, n), generator=gen,
@@ -442,14 +463,15 @@ def _rmmec_rows(spec, group, k, n, stacked, zero_block, xdtype, gen, fails):
     err = (run(x[:8]) - want).abs().max().item()
     tol = RMMEC_RTOL * want.abs().max().item()
     checks["M=8 vs plain"] = err <= tol
-    routes = sorted({launch_plan(m, k, n, xdtype, spec.bits).route
+    routes = sorted({call_plan(x[:m], t.words, t.spec, n).route
                      for m in (1024, 256, 16, 8, 3, 1)})
     # not required: a row moved to another place in its 16-row MMA group
     moved = torch.equal(run(x[37:38])[0], full[37])
     ok = all(checks.values())
     tag = (f"{spec.name:9s} g={str(group):4s} K={k} N={n} "
            f"{'stacked' if stacked else '2-D'} gated={int((t.mask == 0).sum())}"
-           f" x={str(xdtype).split('.')[-1]} routes={'/'.join(routes)}")
+           f" x={str(xdtype).split('.')[-1]} routes={'/'.join(routes)}"
+           f"{' (forced)' if route else ''}")
     log(f"[rmmec] bitwise rows {tag}: "
         + ", ".join(f"{c}: {'ok' if v else 'MISS'}" for c, v in checks.items())
         + f" (M=8 max_abs_err {err:.3e}, tol {tol:.3e}; row 37 alone at M=1,"
@@ -521,15 +543,23 @@ def phase_rmmec(summary, fails) -> None:
         err, *_ = _rmmec_case(spec, None, 8, 1100, 300, True, True, gen,
                               fails)                      # a gated slice
         max_err = max(max_err, err)
-    for spec, group, k, n, stacked, zero in (
-            (fmt.POSIT8, None, 896, 896, True, False),
-            (fmt.FP4, None, 896, 4864, True, False),
-            (fmt.FP4, None, 4864, 896, True, False),
-            (fmt.POSIT8, 32, 1100, 300, True, False),
-            (fmt.FP4, 64, 1100, 300, False, True),
-            (fmt.POSIT8, None, 1100, 300, False, True)):
+    # qwen2's shapes (M = 1024 on the wgmma route where the plan sends it,
+    # M = 256 on the tiles), k/v and K = 1152 in the 2-D layout with gated
+    # chunks on the wgmma route wherever it can go, and K = 1100 (tile64):
+    # the rows of every route against each other
+    for spec, group, k, n, stacked, zero, route in (
+            (fmt.POSIT8, None, 896, 896, True, False, None),
+            (fmt.FP4, None, 896, 4864, True, False, None),
+            (fmt.FP4, None, 4864, 896, True, False, None),
+            (fmt.FP4, 32, 896, 4864, True, False, None),
+            (fmt.POSIT8, None, 896, 128, True, False, "wgmma"),
+            (fmt.FP4, 64, 1152, 300, False, True, "wgmma"),
+            (fmt.POSIT8, None, 1152, 300, False, "block", "wgmma"),
+            (fmt.POSIT8, 32, 1100, 300, True, False, None),
+            (fmt.FP4, 64, 1100, 300, False, True, None),
+            (fmt.POSIT8, None, 1100, 300, False, True, None)):
         _rmmec_rows(spec, group, k, n, stacked, zero, torch.bfloat16, gen,
-                    fails)
+                    fails, route)
     stream_err = 0.0
     # the f32 FMA routes (streaming M <= 16, SIMT above): f32 x, and
     # posit16 with bf16 x; a read-out-like posit16 shape with ragged edges
@@ -578,7 +608,170 @@ def phase_rmmec(summary, fails) -> None:
             s.update({f"ms_m{m}": tot[0], f"plain_ms_m{m}": tot[1],
                       f"library_ms_m{m}": tot[2], f"bound_ms_m{m}": b_ms,
                       f"bound_by_m{m}": b_by})
-    s["max_abs_err"] = max_err
+    s["max_abs_err"] = max(max_err, _wgmma_layers(s, fails, gen))
+
+
+# one layer's seven projections of each model the wgmma route is timed at,
+# and the M of each: (tag, architecture id, rows)
+WGMMA_LAYERS = (("qwen2", "qwen2-0.5b", (256, 1024)),
+                ("gemma", "gemma-2b", (256, 1024)),
+                ("commandr", "command-r-plus-104b", (256,)))
+WGMMA_PLAIN_ALL = ("qwen2",)   # elsewhere the plain version times k alone
+
+
+def _projections(arch):
+    """(name, format, K, N) of one layer's packed projections under
+    paper_mixed (posit8 attention, FP4 FFN) at the config's full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import formats as fmt
+    cfg = get_config(arch)
+    d, q, kv = cfg.d_model, cfg.n_heads * cfg.head_dim, \
+        cfg.n_kv_heads * cfg.head_dim
+    return (("q", fmt.POSIT8, d, q), ("k", fmt.POSIT8, d, kv),
+            ("v", fmt.POSIT8, d, kv), ("o", fmt.POSIT8, q, d),
+            ("gate", fmt.FP4, d, cfg.d_ff), ("up", fmt.FP4, d, cfg.d_ff),
+            ("down", fmt.FP4, cfg.d_ff, d))
+
+
+def _on_route(route):
+    """A context that sends every call to ``route`` ("wgmma": wherever TMA
+    can take it; "tile": the 64- / 128-row tiles) whatever the plan says."""
+    import contextlib
+    from repro_torch.kernels import rmmec_matmul as rm
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = rm.wgmma_faster, rm.tma_aligned
+        if route == "wgmma":
+            rm.wgmma_faster = lambda *a: True
+        else:
+            rm.tma_aligned = lambda *a: False
+        try:
+            yield
+        finally:
+            rm.wgmma_faster, rm.tma_aligned = saved
+    return ctx()
+
+
+def _wgmma_layers(s, fails, gen) -> float:
+    """The wgmma route at prefill shapes: one layer's seven projections of
+    qwen2-0.5b and gemma-2b (M = 256, 1024) and command-r-plus-104b (M =
+    256) at full width, stacked slices, per-channel scales, bf16 x, each
+    weight packed once for its every M.  Each projection: the wgmma kernel
+    and tile_kernel (each forced), the plan's route, torch.matmul on the
+    dense bf16 copy, and the plain version (all of qwen2's; k alone
+    elsewhere); the wgmma rows bitwise tile_kernel's, and within
+    RMMEC_RTOL of plain where it was timed; which projections the plan
+    sent to the slower of the two kernels.  Returns the largest error
+    against plain."""
+    from repro_torch.kernels.ops import pack_tensor, to_dense
+    from repro_torch.kernels.rmmec_matmul import (call_plan, rmmec_matmul,
+                                                  rmmec_matmul_plain)
+    worst = 0.0
+    slower, calls = [], 0
+    for tag, arch, ms in WGMMA_LAYERS:
+        t_arch = time.perf_counter()
+        tots = {m: dict(wgmma=0.0, tile=0.0, kernel=0.0, library=0.0,
+                        plain=0.0, bytes=0.0, flops=0.0) for m in ms}
+        routes = {m: [] for m in ms}
+        for name, spec, k, n in _projections(arch):
+            t = pack_tensor(spec, torch.randn(
+                (1, k, n), generator=gen, device="cuda") * 0.05)[0]
+            dense = to_dense(t).to(torch.bfloat16).contiguous()
+            for m in ms:
+                tot = tots[m]
+                x = torch.randn((m, k), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+
+                def call():
+                    return rmmec_matmul(x, t.words, t.scales, t.mask, t.spec,
+                                        n)
+                with _on_route("wgmma"):
+                    route = call_plan(x, t.words, t.spec, n).route
+                    got = call()
+                    wg = time_ms(call)
+                with _on_route("tile"):
+                    tile = call()
+                    tl = time_ms(call)
+                routes[m].append(call_plan(x, t.words, t.spec, n).route)
+                ms_kernel = time_ms(call)
+                lib = time_ms(lambda: torch.matmul(x, dense))
+                same = torch.equal(got, tile)
+                calls += 1
+                if (routes[m][-1] == "wgmma") != (wg < tl):
+                    slower.append(f"{tag} M={m} {name} ({routes[m][-1]}: "
+                                  f"wgmma {wg:.4f} ms, tiles {tl:.4f} ms)")
+                line = (f"[rmmec] wgmma {tag} M={m} {name} {spec.name} "
+                        f"K={k} N={n} ({route}): wgmma {wg:.4f} ms, "
+                        f"tile_kernel {tl:.4f} ms, routed "
+                        f"({routes[m][-1]}) {ms_kernel:.4f} ms, library "
+                        f"{lib:.4f} ms; rows == tile_kernel's bitwise: "
+                        f"{same}")
+                if not same or route != "wgmma":
+                    fails.append(f"rmmec wgmma {tag} M={m} {name}: route "
+                                 f"{route}, bitwise {same}")
+                if tag in WGMMA_PLAIN_ALL or name == "k":
+                    plain = time_ms(lambda: rmmec_matmul_plain(
+                        x, t.words, t.scales, t.spec, n), iters=5)
+                    want = rmmec_matmul_plain(x, t.words, t.scales, t.spec,
+                                              n)
+                    err = (got - want).abs().max().item()
+                    tol = RMMEC_RTOL * want.abs().max().item()
+                    worst = max(worst, err)
+                    line += (f"; plain {plain:.4f} ms, max_abs_err "
+                             f"{err:.3e} (tol {tol:.3e})")
+                    if not err <= tol:
+                        fails.append(f"rmmec wgmma {tag} M={m} {name} vs "
+                                     f"plain")
+                    tot["plain"] += plain
+                log(line)
+                tot["wgmma"] += wg
+                tot["tile"] += tl
+                tot["kernel"] += ms_kernel
+                tot["library"] += lib
+                tot["bytes"] += (x.numel() * 2 + t.words.numel() * 4
+                                 + t.scales.numel() * 4 + t.mask.numel() * 4
+                                 + m * n * 4)
+                tot["flops"] += 2.0 * m * k * n
+                del x, got, tile
+            del t, dense
+            torch.cuda.empty_cache()
+        for m in ms:
+            tot = tots[m]
+            b_ms, b_by = bound_ms(tot["bytes"], tot["flops"],
+                                  PEAK_FLOPS["bf16"])
+            plain_of = "7 projections" if tag in WGMMA_PLAIN_ALL else "k"
+            log(f"[rmmec] wgmma one {tag} layer, M={m}: wgmma "
+                f"{tot['wgmma']:.4f} ms, tile_kernel {tot['tile']:.4f} ms, "
+                f"routed {tot['kernel']:.4f} ms ({'/'.join(routes[m])}), "
+                f"library {tot['library']:.4f} ms, plain ({plain_of}) "
+                f"{tot['plain']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                f"wgmma / library {tot['wgmma'] / tot['library']:.2f}, "
+                f"wgmma / bound {tot['wgmma'] / b_ms:.2f}")
+            key = f"{tag}_m{m}"
+            s.update({f"wgmma_ms_{key}": tot["wgmma"],
+                      f"tile_ms_{key}": tot["tile"],
+                      f"routed_ms_{key}": tot["kernel"],
+                      f"library_ms_{key}": tot["library"],
+                      f"plain_ms_{key}": tot["plain"],
+                      f"bound_ms_{key}": b_ms, f"bound_by_{key}": b_by})
+            if key == "qwen2_m1024":
+                ratio = tot["wgmma"] / tot["library"]
+                log(f"[rmmec] aim: qwen2 layer at M=1024 within 1.5x "
+                    f"torch.matmul: {ratio:.2f}x, "
+                    f"{'met' if ratio <= 1.5 else 'not met'}")
+            if key == "commandr_m256":
+                ratio = tot["wgmma"] / b_ms
+                log(f"[rmmec] aim: command-r layer at M=256 within 2x its "
+                    f"bf16 operations bound: {ratio:.2f}x, "
+                    f"{'met' if ratio <= 2.0 else 'not met'}")
+        log(f"[time] wgmma layers {tag} (M {', '.join(map(str, ms))}) "
+            f"{time.perf_counter() - t_arch:.1f} s")
+    log(f"[rmmec] route choice: {calls - len(slower)} of {calls} projections "
+        f"on the faster of wgmma_kernel and tile_kernel in this run"
+        + "".join(f"; slower: {x}" for x in slower))
+    s["routed_to_slower"] = len(slower)
+    return worst
 
 
 def phase_flash(summary, fails) -> None:
@@ -708,7 +901,8 @@ def phase_serve(summary, fails) -> None:
     from repro_torch.configs import get_config
     from repro_torch.core.policy import PrecisionPolicy
     from repro_torch.kernels.flash_decode import flash_decode
-    from repro_torch.kernels.rmmec_matmul import rmmec_matmul
+    from repro_torch.kernels.rmmec_matmul import (launch_plan, rmmec_matmul,
+                                                  wgmma_route)
     from repro_torch.models import zoo
     from repro_torch.serve.engine import ServeEngine
 
@@ -733,6 +927,7 @@ def phase_serve(summary, fails) -> None:
 
     rmmec_matmul.launches = 0
     flash_decode.launches = 0
+    wgmma_route.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = eng.generate(toks, steps)
@@ -740,6 +935,22 @@ def phase_serve(summary, fails) -> None:
     total_s = time.perf_counter() - t0
     launches = {"rmmec_matmul": rmmec_matmul.launches,
                 "flash_decode": flash_decode.launches}
+    # the prefill (M = B x prompt = 1024) sends q, o, gate, up and down to
+    # the wgmma route, once a layer (k and v: N = 128, the tiles); decode's
+    # M = B rows take split-K
+    on_wgmma = [name for name, spec, k, n in _projections(cfg.name)
+                if launch_plan(b * s0, k, n, torch.bfloat16, spec.bits,
+                               aligned=True).route == "wgmma"]
+    want_wgmma = 5 * 24
+    log(f"[serve] wgmma route launches {wgmma_route.launches}, expected "
+        f"{want_wgmma} (prefill M={b * s0}: q/o/gate/up/down x 24 layers; "
+        f"the plan's: {'/'.join(on_wgmma)} x {cfg.n_layers})")
+    if wgmma_route.launches != want_wgmma \
+            or on_wgmma != ["q", "o", "gate", "up", "down"]:
+        fails.append(f"serve: the wgmma route launched "
+                     f"{wgmma_route.launches} times for {on_wgmma}, "
+                     f"expected {want_wgmma} for q/o/gate/up/down")
+    summary["rmmec_matmul"]["launches_wgmma"] = wgmma_route.launches
     decode_s = max(total_s - prefill_s, 1e-9)
     per_tok_ms = decode_s / steps * 1e3
     summary["peak_bytes_serve"] = torch.cuda.max_memory_allocated()
@@ -762,6 +973,25 @@ def phase_serve(summary, fails) -> None:
                      f"[{out.min()}, {out.max()}]")
     log(f"[serve] generated {out.shape}; first row tail "
         f"{out[0, s0:s0 + 8].tolist()}")
+    # the static prefill on the plan's routes and with every M > 16 call on
+    # the tiles (the routes before wgmma), nine rounds in turns
+    pre = {"plan": [], "tiles": []}
+    for _ in range(9):
+        for key in pre:
+            with _on_route("tile") if key == "tiles" \
+                    else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.generate(toks, 0)
+                torch.cuda.synchronize()
+                pre[key].append((time.perf_counter() - t0) * 1e3)
+    pre_ms = {key: float(np.median(v)) for key, v in pre.items()}
+    log(f"[serve] static prefill M={b * s0}: plan {pre_ms['plan']:.2f} ms, "
+        f"tiles only {pre_ms['tiles']:.2f} ms (medians of 9 in turns: "
+        + "; ".join(f"{key} " + "/".join(f"{v:.2f}" for v in vals)
+                    for key, vals in pre.items()) + ")")
+    summary["rmmec_matmul"]["prefill_ms_plan"] = pre_ms["plan"]
+    summary["rmmec_matmul"]["prefill_ms_tiles"] = pre_ms["tiles"]
     log("[serve] summary " + json.dumps(dict(
         prefill_ms=prefill_s * 1e3, decode_ms_per_step=per_tok_ms,
         tok_per_s=b * steps / decode_s)))
@@ -806,7 +1036,7 @@ def _profile(fn, cpu: bool = True):
 ATTENTION_KERNELS = ("decode_page_kernel", "decode_fold_kernel",
                      "prefill_kernel")
 RMMEC_KERNELS = ("split_k_kernel", "tile_kernel", "simt_kernel",
-                 "stream_kernel", "stream_narrow_kernel")
+                 "stream_kernel", "stream_narrow_kernel", "wgmma_kernel")
 
 
 def _top_and_attention(dev, n: int = 8):
@@ -1850,7 +2080,7 @@ def _rmmec_path_cases(tag, params, summary, fails,
     8 (decode), 128 (a prefill chunk) and 256 (a whole static prompt)),
     bf16 activations as the path gives them."""
     from repro_torch.kernels.ops import PackedTensor
-    from repro_torch.kernels.rmmec_matmul import launch_plan, rmmec_matmul
+    from repro_torch.kernels.rmmec_matmul import call_plan, rmmec_matmul
     gen = torch.Generator("cuda").manual_seed(7)
     seen = set()
     worst = 0.0
@@ -1874,7 +2104,7 @@ def _rmmec_path_cases(tag, params, summary, fails,
             tol = RMMEC_RTOL * want.abs().max().item()
             ok = err <= tol and torch.isfinite(got).all().item()
             worst = max(worst, err)
-            route = launch_plan(m, k, n, x.dtype, t.spec.bits).route
+            route = call_plan(x, t.words, t.spec, n).route
             log(f"[{tag}] rmmec {path} {t.spec.name} g={t.group} M={m} "
                 f"K={k} N={n} route={route}: max_abs_err={err:.3e} (tol "
                 f"{tol:.3e}) {'ok' if ok else 'MISS'}")
@@ -3688,6 +3918,9 @@ def main() -> int:
         if name == "rmmec_matmul":   # the prefill shapes beside decode's
             kernels[-1].update({key: s[key] for key in (
                 "ms_m256", "ms_m1024", "library_ms_m1024", "bound_ms_m1024")})
+            # the wgmma route at each layer's shapes, and its launches
+            kernels[-1].update({key: v for key, v in s.items() if any(
+                f"_{tag}_m" in key for tag, _, _ in WGMMA_LAYERS)})
             # the posit16 read-outs of phases 3g / 3h (SIMT route)
             kernels[-1].update({key: v for key, v in s.items()
                                 if "_readout_" in key})

@@ -27,7 +27,9 @@
 //
 // Routes (chosen by the wrapper, kernels/rmmec_matmul.py, launch_plan):
 //   - bf16 x with a format of <= 8 bits (the main path): the tensor-core
-//     design below, split-K for M <= 16 and tiles for larger M;
+//     design below, split-K for M <= 16, and for larger M wgmma_kernel
+//     (Hopper's wgmma fed by TMA, further down) where the operands suit TMA
+//     and the shape is one it was measured faster at, tiles elsewhere;
 //   - f32 x, or posit16 with any x: a sequential fmaf over K per output
 //     element in f32 (posit16 carries 12 fraction bits, which bf16 cannot
 //     hold): the streaming kernels for M <= 16 (every untied posit16
@@ -101,12 +103,17 @@
 //     where those fill half the card.
 //   - Hence, bitwise: a row's output is the same whatever M is, whatever
 //     the other rows hold and whichever route runs it (a row keeps its place
-//     in its 16-row MMA group, row r at r % 16).  simt_kernel has the same
-//     property by its sequential K loop.
+//     in its 16-row MMA group, row r at r % 16; wgmma's k16 steps give
+//     mma.sync's bits).  simt_kernel has the same property by its sequential
+//     K loop.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <mutex>
 
 #include "formats.cuh"
 #include "mma.cuh"
@@ -260,7 +267,8 @@ constexpr int FOLD_BATCH = 16;    // chunks whose partials load in one round tri
 
 // Route codes shared with kernels/rmmec_matmul.py (ROUTES).
 enum Route {
-  ROUTE_SIMT = 0, ROUTE_SPLIT_K = 1, ROUTE_TILE64 = 2, ROUTE_TILE128 = 3, ROUTE_STREAM = 4
+  ROUTE_SIMT = 0, ROUTE_SPLIT_K = 1, ROUTE_TILE64 = 2, ROUTE_TILE128 = 3, ROUTE_STREAM = 4,
+  ROUTE_WGMMA = 5
 };
 
 struct Operands {
@@ -321,23 +329,29 @@ __device__ __forceinline__ uint4 load_words(const Operands& op, int k, int wc, i
   return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
-// Decodes four words of row k, whose first code is column n, into bf16 at
-// `dst`: exact table values, times the row's group scale where there is one.
-template <int BITS>
-__device__ __forceinline__ void decode_words(const Operands& op, const uint32_t* lut,
-                                             uint4 words, int k, int n, bf16* dst) {
+// Decodes four words of row k, whose first code is column n, into 4 * PER
+// bf16 values, pairs[i] holding columns n + 2i (low half) and n + 2i + 1:
+// exact table values, times the row's group scale where there is one.
+// Entry e of the table is at lut[e << LS] (LS > 0: interleaved copies, the
+// caller's lut points at its lane's).
+template <int BITS, int LS = 0>
+__device__ __forceinline__ void decode_pairs(const Operands& op, const uint32_t* lut,
+                                             uint4 words, int k, int n,
+                                             uint32_t (&pairs)[64 / BITS]) {
   constexpr int PER = 32 / BITS;
+  constexpr uint32_t B = 0xffu << LS;
   const uint32_t w4[4] = {words.x, words.y, words.z, words.w};
-  uint32_t pairs[2 * PER];  // 4 * PER values as bf16 pairs
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     if constexpr (BITS == 8) {
       const uint32_t c = w4[e];
-      pairs[2 * e] = lut[c & 0xffu] | (lut[(c >> 8) & 0xffu] << 16);
-      pairs[2 * e + 1] = lut[(c >> 16) & 0xffu] | (lut[c >> 24] << 16);
+      pairs[2 * e] = lut[(c << LS) & B] | (lut[(c >> (8 - LS)) & B] << 16);
+      pairs[2 * e + 1] = lut[(c >> (16 - LS)) & B] | (lut[(c >> (24 - LS)) & B] << 16);
     } else {
 #pragma unroll
-      for (int b = 0; b < 4; ++b) pairs[4 * e + b] = lut[(w4[e] >> (8 * b)) & 0xffu];
+      for (int b = 0; b < 4; ++b)
+        pairs[4 * e + b] =
+            lut[(8 * b >= LS ? w4[e] >> (8 * b - LS) : w4[e] << (LS - 8 * b)) & B];
     }
   }
   if (op.group > 0) {
@@ -353,6 +367,15 @@ __device__ __forceinline__ void decode_words(const Operands& op, const uint32_t*
                        __float2bfloat16_rn(__fmul_rn(v1, s1)));
     }
   }
+}
+
+// decode_pairs of four words of row k (first code: column n) into `dst`.
+template <int BITS>
+__device__ __forceinline__ void decode_words(const Operands& op, const uint32_t* lut,
+                                             uint4 words, int k, int n, bf16* dst) {
+  constexpr int PER = 32 / BITS;
+  uint32_t pairs[2 * PER];
+  decode_pairs<BITS>(op, lut, words, k, n, pairs);
   uint4* d = reinterpret_cast<uint4*>(dst);
 #pragma unroll
   for (int i = 0; i < PER / 2; ++i)
@@ -1350,12 +1373,501 @@ cudaError_t launch_stream(const StreamOps& op, cudaStream_t stream) {
   return launch_stream_rows<BITS, TX, 16>(op, stream);
 }
 
+// ---------------------------------------------------------------------------
+// wgmma: a persistent, warp-specialised grid over 128 x 64 output tiles
+// ---------------------------------------------------------------------------
+//
+// Replaces the same TPU kernel as the tiles above (rmmec_matmul.py:127,
+// rmmec_matmul_pallas) for bf16 x with codes of <= 8 bits at M > 16 where
+// TMA can address both operands (K a multiple of 64, the words' rows a
+// multiple of 16 bytes, both bases 16-byte aligned) and its persistent grid
+// ends before the tiles' (launch_plan decides, from the waves each grid
+// takes on the card's SMs).
+//
+// What bounds it on this card: bf16 operations at prefill shapes (qwen2's
+// seven projections at M = 1024: 30.5 GFLOP, 31 us at 989 TFLOP/s; a
+// 12288-wide layer at M = 256: ~0.8 ms), the words' and x's bytes at small
+// M x N.  mma.sync (tile_kernel) feeds the tensor cores through registers
+// loaded from shared memory; wgmma is Hopper's way to their full rate, and
+// its asynchrony lets the code -> bf16 decode run on the CUDA cores while
+// the tensor cores multiply.  What the design does about it:
+//   - Block: two consumer warpgroups (64 rows of x each, m64n64k16 chains)
+//     and a producer warp whose first lane issues every load.  A consumer
+//     thread holds the chunk partial and the running total (32 + 32 f32).
+//   - Persistent grid: one block an SM walks the output tiles N-fastest, so
+//     the blocks in flight share x's rows in L2; the producer runs ahead
+//     across tiles, so one tile's stores overlap the next one's loads.
+//   - Two TMA rings of WG_STAGES chunks each, a full and an empty mbarrier
+//     a stage: x's 128 x KC tile in one 3-D load (two 64-column boxes,
+//     128-byte swizzle, zeros past M and K), and the chunk's packed words
+//     (KC rows x 64 columns of codes, zeros past K, swizzled so that the
+//     decode's reads meet no bank twice).  In this design's card runs a
+//     block's TMA loads were served one after another, at much the same
+//     time for 8 KB as for 32 KB, and the thread issuing one waited while
+//     the unit was busy: so a chunk costs two loads, and a warp of its own
+//     issues them.  The words run ahead of x (each ring as soon as a stage
+//     frees).
+//   - The consumers decode chunk c+1's codes through the format's table
+//     (interleaved copies, one a lane or two lanes; times
+//     the power-of-two group scale: exact) into one of two B slots in
+//     wgmma's N-major 128-byte-swizzled layout (wg_b_offset) while chunk c's
+//     wgmma chain is in flight; fence.proxy.async and a named barrier among
+//     the consumers then hand the slot to the tensor cores.
+//   - 64-column tiles: twice the blocks of 128-column ones at qwen2's
+//     narrow projections (896 columns: 14 N-tiles), and 64 registers of
+//     fragments a thread, so no spills under the 168 registers ptxas gives
+//     a block of 288 threads.
+//
+// Why the fold stays chunk-ordered: a row's bits must not depend on M or on
+// the route (continuous serving's chunk tails below 17 rows run split-K).
+// So, as in tile_kernel: chunks of KC rows with bounds from K alone; a
+// chunk's partial is its k16 chain from zero (the first wgmma with scale-d
+// 0); the partials fold in chunk order with __fadd_rn, then the per-channel
+// scale with __fmul_rn; a gated chunk runs no decode and no MMA and folds as
+// an exact zero.  Each output row sees the k16 products and sums of
+// split_k_kernel's mma.sync (rmmec_ablation's probe holds the two bitwise).
+
+constexpr int WG_CONSUMERS = 2;                // consumer warpgroups, 64 rows of x each
+constexpr int WG_BM = 64 * WG_CONSUMERS;       // rows of a block tile
+constexpr int WG_BN = 64;                      // columns of a block tile
+constexpr int WG_STAGES = 4;                   // chunks in each TMA ring
+constexpr int WG_THREADS = 128 * WG_CONSUMERS + 32;  // the consumers, then the producer warp
+constexpr int WG_MASK_BYTES = 4096;            // block masks up to this many blocks in shared memory
+
+// Shared memory of wgmma_kernel<BITS>, in bytes from a 1024-byte boundary:
+// the x ring, the words' ring, two decoded B slots, the decode table in
+// 1 << LS interleaved copies (entry e of copy r at e << LS | r; lane l reads
+// copy l % (1 << LS): 32 copies for 4-bit codes, no bank conflicts; 16 for
+// 8-bit ones, whose words take more room), the block mask as bytes, the
+// rings' barriers.
+template <int BITS>
+struct WgSmem {
+  static constexpr int LS = BITS == 4 ? 5 : 4;
+  static constexpr int X_BOX = WG_BM * 64 * 2;        // one 64-column box of x
+  static constexpr int X_BYTES = 2 * X_BOX;           // x's WG_BM x KC tile
+  static constexpr int RAW_BYTES = KC * WG_BN * BITS / 8;
+  static constexpr int RAW = WG_STAGES * X_BYTES;     // the words' ring
+  static constexpr int B_BYTES = KC * 128;            // a decoded KC x 64 slot
+  static constexpr int SLOTS = RAW + WG_STAGES * RAW_BYTES;
+  static constexpr int LUT = SLOTS + 2 * B_BYTES;
+  static constexpr int MASK = LUT + (1024 << LS);
+  static constexpr int BARS = MASK + WG_MASK_BYTES;   // x full, x empty, words full, words empty
+  static constexpr int BYTES = BARS + 4 * WG_STAGES * 8 + 1024;  // + alignment slack
+  static_assert(X_BYTES % 1024 == 0 && RAW_BYTES % 1024 == 0 && BYTES <= 232448,
+                "swizzle atoms on 1024 bytes, within a block's shared memory");
+};
+
+// Byte offset of weight (k, n) in a B slot: wgmma's N-major layout with the
+// 128-byte swizzle.  Columns 64 h .. 64 h + 63 form half h (KC * 128
+// bytes), row k of a half is 128 bytes at 128 k, and the 16-byte chunk of 8
+// columns n / 8 % 8 sits at chunk (n / 8 % 8) ^ (k % 8) of its row.  So the
+// 8-row x 64-column atoms lie 1024 bytes apart along K (the descriptor's
+// stride byte offset) and KC * 128 apart along N.
+__host__ __device__ constexpr int wg_b_offset(int k, int n) {
+  return (n / 64) * (KC * 128) + k * 128 + (((n / 8) % 8) ^ (k % 8)) * 16 + (n % 8) * 2;
+}
+
+// A stage's x tile as TMA writes it with the 128-byte swizzle: element
+// (r, k) in box k / 64, row r at 128 r, 16-byte chunk (k / 8 % 8) ^ (r % 8)
+// (the ablation's probe writes it so, wg_x_offset in wgmma_probe.cu).  A
+// warpgroup's A descriptor starts at its 64 rows (8192 bytes a
+// warpgroup), 8-row groups 1024 bytes apart; a k16 step moves the start by
+// 32 bytes within the box.
+
+// One chunk partial of a consumer warpgroup: acc = its 64 rows of the x
+// tile at `xs` times the decoded slot at `bs`, a chain of nks k16 steps from
+// zero; issued and committed, not waited for.
+__device__ __forceinline__ void wg_chunk_mma(float (&acc)[32], uint32_t xs, uint32_t bs,
+                                             int x_box, int wg, int nks) {
+  const uint32_t a0 = xs + wg * 64 * 128;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) fence_operand(acc[i]);
+  wgmma_fence();
+  if (nks == KC / 16) {
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks)
+      wgmma_m64n64k16(acc, gmma_desc_sw128(a0 + (ks / 4) * x_box + (ks % 4) * 32, 16, 1024),
+                      gmma_desc_sw128(bs + ks * 16 * 128, KC * 128, 1024), ks > 0);
+  } else {
+#pragma unroll 1
+    for (int ks = 0; ks < nks; ++ks)
+      wgmma_m64n64k16(acc, gmma_desc_sw128(a0 + (ks / 4) * x_box + (ks % 4) * 32, 16, 1024),
+                      gmma_desc_sw128(bs + ks * 16 * 128, KC * 128, 1024), ks > 0);
+  }
+  wgmma_commit();
+}
+
+// The 16-byte pieces of a chunk's words (KC rows x WG_BN / PER words) a
+// consumer thread decodes: piece j of thread tid is row
+// wg_piece_row(tid, j), piece column (tid / 8) % PIECES, so that eight
+// consecutive threads take one piece column of eight consecutive rows and
+// their 16-byte stores into the B slot (its swizzle) meet no bank twice.
+template <int BITS>
+__device__ __forceinline__ int wg_piece_row(int tid, int j) {
+  constexpr int PIECES = WG_BN / (32 / BITS) / 4, NC = 128 * WG_CONSUMERS;
+  const int s = tid + j * NC;
+  return s / (8 * PIECES) * 8 + s % 8;
+}
+
+// Where TMA puts 16-byte piece pc of row r of a chunk's raw words: rows of
+// WG_BN / PER words (64 bytes, 8-bit codes, 64-byte swizzle; 32 bytes,
+// 4-bit codes, 32-byte swizzle), so that piece pc of eight consecutive rows
+// fills all 32 banks.
+template <int BITS>
+__host__ __device__ constexpr int wg_raw_piece(int r, int pc) {
+  return BITS == 8 ? r * 4 + (pc ^ ((r / 2) % 4)) : r * 2 + (pc ^ ((r / 4) % 2));
+}
+
+// The consumers' decode of one chunk: the raw words at `raw` (as TMA wrote
+// them) -> bf16 into the B slot `bs` (wg_b_offset), rows k0 .., columns
+// n0 ..; `lut` at the lane's copy of the table (WgSmem::LS).  A thread's loads first,
+// then its decodes and 16-byte stores.
+template <int BITS>
+__device__ __forceinline__ void wg_decode(const Operands& op, const uint32_t* lut,
+                                          const uint8_t* raw, uint8_t* bs, int k0, int n0) {
+  constexpr int PER = 32 / BITS, PIECES = WG_BN / PER / 4, NC = 128 * WG_CONSUMERS;
+  constexpr int DP = KC * PIECES / NC;  // 16-byte pieces of words a thread
+  static_assert(KC * PIECES % NC == 0 && NC % (8 * PIECES) == 0, "whole row groups");
+  const int pc = (threadIdx.x / 8) % PIECES;
+  uint4 w[DP];
+#pragma unroll
+  for (int j = 0; j < DP; ++j)
+    w[j] = reinterpret_cast<const uint4*>(raw)[wg_raw_piece<BITS>(
+        wg_piece_row<BITS>(threadIdx.x, j), pc)];
+#pragma unroll
+  for (int j = 0; j < DP; ++j) {
+    const int r = wg_piece_row<BITS>(threadIdx.x, j);
+    uint32_t pairs[2 * PER];
+    decode_pairs<BITS, WgSmem<BITS>::LS>(op, lut, w[j], k0 + r, n0 + pc * 4 * PER, pairs);
+#pragma unroll
+    for (int i = 0; i < PER / 2; ++i)  // 8 columns a 16-byte chunk
+      *reinterpret_cast<uint4*>(bs + wg_b_offset(r, (pc * (PER / 2) + i) * 8)) =
+          make_uint4(pairs[4 * i], pairs[4 * i + 1], pairs[4 * i + 2], pairs[4 * i + 3]);
+  }
+}
+
+// Does chunk c of tile t (tiles N-fastest, ntn of them along N) touch a
+// live mask block?  The same verdict in every thread.  `smask`: the mask's
+// rows as bytes in shared memory (null: read the mask itself).
+__device__ __forceinline__ bool wg_live(const Operands& op, const uint8_t* smask, int ntn, int t,
+                                        int c) {
+  if (smask && op.mk % KC == 0 && op.mn % WG_BN == 0)  // one mask block a chunk and tile
+    return smask[(c * KC / op.mk) * op.mask_cols + (t % ntn) * WG_BN / op.mn] != 0;
+  const int n0 = (t % ntn) * WG_BN, k0 = c * KC;
+  const int kend = min(k0 + KC, op.K), n1 = min(n0 + WG_BN, op.Np);
+  for (int kb = k0 / op.mk; kb <= (kend - 1) / op.mk; ++kb)
+    for (int nb = n0 / op.mn; nb <= (n1 - 1) / op.mn; ++nb)
+      if (smask ? smask[kb * op.mask_cols + nb] != 0 : op.mask[kb * op.mask_cols + nb] != 0)
+        return true;
+  return false;
+}
+
+// Moves (t, c) to the block's next live chunk: chunks in order, then the
+// block's next tile (t >= ntiles: none left).
+__device__ __forceinline__ void wg_next(const Operands& op, const uint8_t* smask, int ntn,
+                                        int ntiles, int nchunks, int& t, int& c) {
+  do {
+    if (++c == nchunks) {
+      c = 0;
+      t += gridDim.x;
+    }
+  } while (t < ntiles && !wg_live(op, smask, ntn, t, c));
+}
+
+// Grid: min(tiles, SMs) blocks of WG_THREADS; WgSmem<BITS>::BYTES of
+// dynamic shared memory.  xmap: x (M, K) bf16 as (64, M, K / 64), box 64 x
+// WG_BM x 2 (a chunk: zeros past M and past K), 128-byte swizzle; wmap: the
+// words (K rows, Np / PER), box WG_BN / PER x KC, swizzled as wg_raw_piece
+// says.
+template <int BITS>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgmma_kernel(const Operands op, const __grid_constant__ CUtensorMap xmap,
+             const __grid_constant__ CUtensorMap wmap) {
+  using L = WgSmem<BITS>;
+  constexpr int PER = 32 / BITS, NC = 128 * WG_CONSUMERS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint32_t* lut = reinterpret_cast<uint32_t*>(sm + L::LUT);
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* xempty = xfull + WG_STAGES;
+  uint64_t* wfull = xempty + WG_STAGES;
+  uint64_t* wempty = wfull + WG_STAGES;
+  uint8_t* raw = sm + L::RAW;
+  uint8_t* slots = sm + L::SLOTS;
+  const int ntn = (op.N + WG_BN - 1) / WG_BN;
+  const int ntiles = ntn * ((op.M + WG_BM - 1) / WG_BM);
+  const int nchunks = (op.K + KC - 1) / KC;
+  const int lane = threadIdx.x % 32;
+
+  // the block mask where it fits, for every liveness verdict; the table
+  const int mblocks = ((op.K - 1) / op.mk + 1) * op.mask_cols;
+  uint8_t* smask_rw = mblocks <= WG_MASK_BYTES ? sm + L::MASK : nullptr;
+  const uint8_t* smask = smask_rw;
+  if (smask_rw)
+    for (int i = threadIdx.x; i < mblocks; i += WG_THREADS) smask_rw[i] = op.mask[i] != 0;
+  for (int i = threadIdx.x; i < 256 << L::LS; i += WG_THREADS)
+    lut[i] = __ldg(op.table + (i >> L::LS));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(xfull + s, 1);
+      mbar_init(wfull + s, 1);
+      mbar_init(xempty + s, NC / 32);  // one arrival a consumer warp
+      mbar_init(wempty + s, NC / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NC) {
+    // the producer warp: its first lane keeps both rings full with the
+    // block's live chunks in order, across tiles, each ring as soon as a
+    // stage of it frees, the words first
+    if (lane == 0) {
+      tma_prefetch_map(&xmap);
+      tma_prefetch_map(&wmap);
+      int xt = blockIdx.x, xc = -1, wt = blockIdx.x, wc = -1, xs = 0, ws = 0;
+      uint32_t xph = 0, wph = 0;
+      wg_next(op, smask, ntn, ntiles, nchunks, xt, xc);
+      wg_next(op, smask, ntn, ntiles, nchunks, wt, wc);
+      while (xt < ntiles) {
+        if (wt < ntiles && mbar_test(wempty + ws, wph ^ 1)) {
+          mbar_arrive_expect_tx(wfull + ws, L::RAW_BYTES);
+          tma_load_2d(raw + ws * L::RAW_BYTES, &wmap, wfull + ws, (wt % ntn) * WG_BN / PER,
+                      wc * KC);
+          if (++ws == WG_STAGES) {
+            ws = 0;
+            wph ^= 1;
+          }
+          wg_next(op, smask, ntn, ntiles, nchunks, wt, wc);
+        }
+        if (mbar_test(xempty + xs, xph ^ 1)) {
+          mbar_arrive_expect_tx(xfull + xs, L::X_BYTES);
+          tma_load_3d(sm + xs * L::X_BYTES, &xmap, xfull + xs, 0, (xt / ntn) * WG_BM,
+                      xc * KC / 64);
+          if (++xs == WG_STAGES) {
+            xs = 0;
+            xph ^= 1;
+          }
+          wg_next(op, smask, ntn, ntiles, nchunks, xt, xc);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32;
+  const uint32_t* lutp = lut + lane % (1 << L::LS);  // the lane's copy of the table
+  // the next live chunk to decode (tile dt, chunk dc), its words' stage and
+  // its B slot; the x stage and B slot of the next live chunk's MMAs
+  int dt = blockIdx.x, dc = -1, dstage = 0, bslot = 0, mstage = 0, mslot = 0;
+  uint32_t dphase = 0, mphase = 0;
+  auto decode = [&]() {  // the next live chunk's words: wait, decode, release
+    mbar_wait(wfull + dstage, dphase);
+    wg_decode<BITS>(op, lutp, raw + dstage * L::RAW_BYTES, slots + bslot * L::B_BYTES,
+                    dc * KC, (dt % ntn) * WG_BN);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(wempty + dstage);
+    if (++dstage == WG_STAGES) {
+      dstage = 0;
+      dphase ^= 1;
+    }
+    bslot ^= 1;
+    wg_next(op, smask, ntn, ntiles, nchunks, dt, dc);
+  };
+  wg_next(op, smask, ntn, ntiles, nchunks, dt, dc);
+  if (dt < ntiles) decode();
+  fence_proxy_async();
+  bar_sync(1, NC);
+
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int m0 = (t / ntn) * WG_BM, n0 = (t % ntn) * WG_BN;
+    const bool rows = m0 + 64 * wg < op.M;  // this warpgroup's rows hold some of x's
+    float tot[32];
+    for (int c = 0; c < nchunks; ++c) {
+      if (!wg_live(op, smask, ntn, t, c)) {  // a gated chunk folds an exact zero
+#pragma unroll
+        for (int i = 0; i < 32; ++i) tot[i] = c == 0 ? 0.0f : __fadd_rn(tot[i], 0.0f);
+        continue;
+      }
+      float acc[32];
+      const int nks = (min(c * KC + KC, op.K) - c * KC + 15) / 16;
+      mbar_wait(xfull + mstage, mphase);
+      if (rows)
+        wg_chunk_mma(acc, smem_addr(sm + mstage * L::X_BYTES),
+                     smem_addr(slots + mslot * L::B_BYTES), L::X_BOX, wg, nks);
+      if (dt < ntiles) decode();  // the next live chunk's, beside the MMAs in flight
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) fence_operand(acc[i]);
+      if (lane == 0) mbar_arrive(xempty + mstage);  // this stage's x consumed
+      if (++mstage == WG_STAGES) {
+        mstage = 0;
+        mphase ^= 1;
+      }
+      mslot ^= 1;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tot[i] = c == 0 ? acc[i] : __fadd_rn(tot[i], acc[i]);
+      fence_proxy_async();  // the decoded slot, to the tensor cores
+      bar_sync(1, NC);
+    }
+    // the tile's outputs from the fragments: n8 block i, rows g and g + 8 of
+    // the warp's 16, columns 2 (lane % 4) and the next
+    const int row = m0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int n = n0 + 8 * i + 2 * (lane % 4);
+      float s0 = 1.0f, s1 = 1.0f;
+      if (op.group == 0) {
+        s0 = n < op.N ? op.scales[n] : 0.0f;
+        s1 = n + 1 < op.N ? op.scales[n + 1] : 0.0f;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = row + 8 * h;
+        if (m >= op.M) continue;
+        float v0 = tot[4 * i + 2 * h], v1 = tot[4 * i + 2 * h + 1];
+        if (op.group == 0) {
+          v0 = __fmul_rn(v0, s0);
+          v1 = __fmul_rn(v1, s1);
+        }
+        float* o = op.out + (size_t)m * op.N + n;
+        if (n + 1 < op.N && op.N % 2 == 0) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          if (n < op.N) o[0] = v0;
+          if (n + 1 < op.N) o[1] = v1;
+        }
+      }
+    }
+  }
+}
+
+// ---- host side of the wgmma route: tensor maps ----------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found once through the runtime
+// (the library links cudart only).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess || q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess || q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A tensor map of rows x cols elements of `esize` bytes, row stride
+// `stride` bytes, a `swizzle`-byte swizzle.  esize 2 (bf16 x): 3-D (64
+// columns, rows, cols / 64 blocks of 64 columns), box 64 x bh x 2, so one
+// load brings a chunk's two 64-column boxes.  esize 4 (the words): 2-D, box
+// bw x bh.  Cached: the encoding is a pure function of these, and x's and
+// the words' pointers repeat from call to call.
+struct MapKey {
+  const void* ptr;
+  uint64_t rows, cols, stride;
+  uint32_t bw, bh, esize, swizzle;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && rows == o.rows && cols == o.cols && stride == o.stride &&
+           bw == o.bw && bh == o.bh && esize == o.esize && swizzle == o.swizzle;
+  }
+};
+constexpr int MAP_SLOTS = 256;  // direct-mapped
+
+bool tensor_map(CUtensorMap* map, const MapKey& key) {
+  static MapKey keys[MAP_SLOTS];
+  static CUtensorMap maps[MAP_SLOTS];
+  static bool used[MAP_SLOTS] = {};
+  static std::mutex mu;
+  uint64_t h = (reinterpret_cast<uintptr_t>(key.ptr) >> 4) ^ (key.rows * 0x9E3779B97F4A7C15ull) ^
+               (key.cols * 0xC2B2AE3D27D4EB4Full) ^ key.stride ^ (uint64_t(key.bw) << 20) ^
+               key.bh ^ (uint64_t(key.esize) << 32) ^ (uint64_t(key.swizzle) << 40);
+  h ^= h >> 29;
+  const int slot = static_cast<int>(h % MAP_SLOTS);
+  std::lock_guard<std::mutex> lock(mu);
+  if (used[slot] && keys[slot] == key) {
+    *map = maps[slot];
+    return true;
+  }
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const bool x = key.esize == 2;
+  const cuuint64_t dims[3] = {x ? 64 : key.cols, key.rows, key.cols / 64};
+  const cuuint64_t strides[2] = {key.stride, 128};
+  const cuuint32_t box[3] = {x ? 64 : key.bw, key.bh, key.bw / 64};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  if (enc(map, x ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT32, x ? 3 : 2,
+          const_cast<void*>(key.ptr), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          key.swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+          : key.swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_32B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  keys[slot] = key;
+  maps[slot] = *map;
+  used[slot] = true;
+  return true;
+}
+
+// SMs of the current device, read once per device.
+int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
+
+// Can TMA address x (M, K) bf16 in blocks of 64 columns and the words (K
+// rows of Np / PER int32)?
+bool tma_aligned(const Operands& op, int per) {
+  return op.K % 64 == 0 && (op.Np / per) % 4 == 0 &&
+         (reinterpret_cast<uintptr_t>(op.x) & 15) == 0 &&
+         (reinterpret_cast<uintptr_t>(op.w) & 15) == 0;
+}
+
+template <int BITS>
+cudaError_t launch_wgmma(const Operands& op, cudaStream_t stream) {
+  constexpr int PER = 32 / BITS, smem = WgSmem<BITS>::BYTES;
+  if (!tma_aligned(op, PER)) return cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap;
+  if (!tensor_map(&xmap, MapKey{op.x, (uint64_t)op.M, (uint64_t)op.K, (uint64_t)op.K * 2, KC,
+                                (uint32_t)WG_BM, 2, 128}) ||
+      !tensor_map(&wmap, MapKey{op.w, (uint64_t)op.K, (uint64_t)(op.Np / PER),
+                                (uint64_t)(op.Np / PER) * 4, (uint32_t)(WG_BN / PER),
+                                (uint32_t)KC, 4, (uint32_t)(WG_BN / PER * 4)}))
+    return cudaErrorInvalidValue;
+  static bool allowed = false;
+  const cudaError_t err = allow_smem(wgmma_kernel<BITS>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((op.N + WG_BN - 1) / WG_BN) * ((op.M + WG_BM - 1) / WG_BM);
+  const int grid = std::min(tiles, sm_count());
+  if (grid < 1) return cudaErrorInvalidValue;
+  wgmma_kernel<BITS><<<grid, WG_THREADS, smem, stream>>>(op, xmap, wmap);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // a format this library has no decoder for or a route that cannot take the
 // call (the tensor routes: bf16 x, <= 8 bits and the format's decode table;
-// split-K: M <= 16, with scratch and counters when K > KC; the streaming
+// split-K: M <= 16, with scratch and counters when K > KC; wgmma: operands
+// TMA can address (K % 64 == 0, Np / per % 4 == 0, x and the words 16-byte
+// aligned) and a driver that encodes their tensor maps; the streaming
 // route: M <= 16, the format's stream table, a strip of WIDE_BN (warp
 // strips, stream_kernel) or a power-of-two multiple of a 16-byte piece's
 // codes up to NARROW_MAX_BN (stream_narrow_kernel), f32 x with a format of
@@ -1386,7 +1898,7 @@ extern "C" int rmmec_matmul(const void* x, int x_bf16, const void* words,
                                       : launch_stream<8, float>(op, st));
   }
   if (route != ROUTE_SIMT) {
-    if (!x_bf16 || !table || (bits != 4 && bits != 8) || route > ROUTE_TILE128 ||
+    if (!x_bf16 || !table || (bits != 4 && bits != 8) || route > ROUTE_WGMMA ||
         (route == ROUTE_SPLIT_K && (M > SPLIT_M || (K > KC && (!scratch || !counters)))))
       return invalid;
     const Operands op{static_cast<const bf16*>(x), static_cast<const uint32_t*>(words),
@@ -1394,6 +1906,8 @@ extern "C" int rmmec_matmul(const void* x, int x_bf16, const void* words,
                       static_cast<float*>(out), static_cast<float*>(scratch),
                       static_cast<int*>(counters), static_cast<const uint32_t*>(table), M,
                       K, N, Np, group, mk, mn, mask_cols};
+    if (route == ROUTE_WGMMA)
+      return static_cast<int>(bits == 4 ? launch_wgmma<4>(op, st) : launch_wgmma<8>(op, st));
     return static_cast<int>(bits == 4 ? launch_tensor<4>(op, route, st)
                                       : launch_tensor<8>(op, route, st));
   }

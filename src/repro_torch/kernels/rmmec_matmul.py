@@ -13,8 +13,13 @@ shapes and types alone (nothing is read back from the card):
   - bf16 x with a format of <= 8 bits (the main path) goes to the tensor
     cores: K is cut into chunks of ``KC`` rows whose partials are folded
     in chunk order, by ``split_k`` (M <= 16: a block per 64-column N-tile
-    and chunk, the last block of a tile to arrive folds) or by ``tile64`` /
-    ``tile128`` (a block per output tile walks its chunks);
+    and chunk, the last block of a tile to arrive folds), by ``wgmma``
+    (M > 16 where TMA can address x and the words, see
+    :func:`tma_aligned`, and its grid ends first, see
+    :func:`wgmma_faster`: a persistent block an SM walks 128 x 64 tiles,
+    TMA loads, wgmma chains, the decode beside them) or by ``tile64`` /
+    ``tile128`` (the other M > 16 calls: a block per output tile walks
+    its chunks);
   - f32 x, or posit16 with any x (every untied read-out), goes to a
     sequential f32 FMA loop over K: ``stream`` for M <= 16 (a warp per
     strip of 32 columns walks K, or for narrow N a block per strip of
@@ -44,7 +49,8 @@ from . import ref
 
 __all__ = ["rmmec_matmul", "rmmec_matmul_plain", "default_blocks",
            "launch_plan", "LaunchPlan", "chunk_bounds", "decode_table",
-           "stream_table", "stream_strip", "stream_route", "KC"]
+           "stream_table", "stream_strip", "stream_route", "wgmma_route",
+           "wgmma_faster", "tma_aligned", "call_plan", "KC"]
 
 KIND = {"posit": 0, "minifloat": 1, "fixed": 2}
 
@@ -53,9 +59,13 @@ KC = 128                       # K rows of a chunk partial
 SPLIT_K_MAX_M = 16             # most rows of the split-K route
 SPLIT_BN = 64                  # columns of a split-K N-tile
 SPLIT_THREADS = 128
-ROUTES = {"simt": 0, "split_k": 1, "tile64": 2, "tile128": 3, "stream": 4}
+ROUTES = {"simt": 0, "split_k": 1, "tile64": 2, "tile128": 3, "stream": 4,
+          "wgmma": 5}
+WG_CONSUMERS = 2               # wgmma: consumer warpgroups, 64 rows each
+WG_STAGES = 4                  # wgmma: chunks in each TMA ring
 # route -> (rows, columns, threads) of a block's output tile
-TILES = {"tile64": (64, 64, 256), "tile128": (128, 128, 256)}
+TILES = {"tile64": (64, 64, 256), "tile128": (128, 128, 256),
+         "wgmma": (64 * WG_CONSUMERS, 64, 128 * WG_CONSUMERS + 32)}
 SIMT_BN = 64
 SIMT_ROWS = 64                 # x rows of a SIMT block (M > 16)
 STREAM_THREADS = 256           # threads of a narrow block
@@ -140,11 +150,58 @@ def stream_route(m: int, x_dtype: torch.dtype, bits: int) -> bool:
 stream_route.launches = 0
 
 
+def tma_aligned(k: int, n_words: int, *ptrs: int) -> bool:
+    """Whether TMA can address x (M, k) bf16 in blocks of 64 columns and
+    packed words of ``n_words`` int32 a row: k a multiple of 64, the words'
+    row stride a multiple of 16 bytes and every pointer in ``ptrs`` (x's,
+    the words') 16-byte aligned."""
+    return k % 64 == 0 and n_words % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+
+
+# The time of one wave of a tile route's blocks (a 128 x 128 block on every
+# SM; two 64 x 64 blocks sharing each SM) in units of one wave of
+# wgmma_kernel's 128 x 64 tiles: the medians of the H100's sweep over M, K,
+# N and the format (rmmec_ablation --only routes; PERF.md, section 6).  A
+# 64 x 64 block alone on its SM ends before a wgmma tile does (0.84 of
+# one), so a tile64 grid of at most one block an SM stays on the tiles.
+WAVE_COST = {"tile128": 1.75, "tile64": 1.13}
+
+
+def wgmma_faster(m: int, n: int, sms: int = H100_SMS) -> bool:
+    """Whether wgmma_kernel's persistent grid (128 x 64 tiles, a block an
+    SM) ends before the tile route :func:`launch_plan` would otherwise
+    take for an (m, n) output: each grid's waves of blocks on ``sms`` SMs
+    times the cost of a wave (``WAVE_COST``)."""
+    waves = _cdiv(_cdiv(m, 128) * _cdiv(n, 64), sms)
+    t128 = _cdiv(m, 128) * _cdiv(n, 128)
+    if 2 * t128 >= sms:
+        return waves < WAVE_COST["tile128"] * _cdiv(t128, sms)
+    t64 = _cdiv(m, 64) * _cdiv(n, 64)
+    return t64 > sms and waves < WAVE_COST["tile64"] * _cdiv(t64, 2 * sms)
+
+
+def wgmma_route(m: int, n: int, x_dtype: torch.dtype, bits: int,
+                aligned: bool, sms: int = H100_SMS) -> bool:
+    """Whether x (m, K) of ``x_dtype`` times ``bits``-bit codes (K, n)
+    takes the wgmma route: it can (bf16 x, <= 8 bits, M > 16,
+    ``aligned``: :func:`tma_aligned` holds) and :func:`wgmma_faster` says
+    it ends first.  ``wgmma_route.launches`` counts its launches beside
+    the wrapper's own count."""
+    return (m > SPLIT_K_MAX_M and x_dtype == torch.bfloat16 and bits <= 8
+            and aligned and wgmma_faster(m, n, sms))
+
+
+wgmma_route.launches = 0
+
+
 def launch_plan(m: int, k: int, n: int, x_dtype: torch.dtype, bits: int,
-                sms: int = H100_SMS) -> LaunchPlan:
+                sms: int = H100_SMS, aligned: bool = False) -> LaunchPlan:
     """The launch of x (m, k) @ W (k, n) for x of ``x_dtype`` and a format
     of ``bits`` bits on a card of ``sms`` SMs (mirrors the C entry point's
-    grids).  128 x 128 tiles only where they fill half the card or more."""
+    grids); ``aligned``: :func:`tma_aligned` holds for the call's operands.
+    wgmma where TMA can take the operands at M > 16 and its grid ends
+    first (:func:`wgmma_route`); else 128 x 128 tiles only where they fill
+    half the card or more."""
     if stream_route(m, x_dtype, bits):
         bn = stream_strip(n, bits, sms)
         threads = WIDE_THREADS if bn == WIDE_BN else STREAM_THREADS
@@ -160,6 +217,11 @@ def launch_plan(m: int, k: int, n: int, x_dtype: torch.dtype, bits: int,
             "split_k", (tiles, len(chunks)), SPLIT_THREADS, chunks,
             len(chunks) * m * tiles * SPLIT_BN if folds else 0,
             tiles if folds else 0)
+    if wgmma_route(m, n, x_dtype, bits, aligned, sms):
+        bm, bn, threads = TILES["wgmma"]
+        tiles = _cdiv(m, bm) * _cdiv(n, bn)
+        return LaunchPlan("wgmma", (min(tiles, sms), 1), threads, chunks,
+                          0, 0)
     big = 2 * _cdiv(m, 128) * _cdiv(n, 128) >= sms
     route = "tile128" if big else "tile64"
     bm, bn, threads = TILES[route]
@@ -274,6 +336,20 @@ def _sms(device: torch.device) -> int:
     return n
 
 
+def call_plan(x: torch.Tensor, words: torch.Tensor, spec: FormatSpec,
+              n: int) -> LaunchPlan:
+    """The plan ``rmmec_matmul`` launches for x (M, K) on the card times
+    ``words``: :func:`launch_plan` with the card's SMs and the operands'
+    alignment, read only for a call the wgmma route can take (bf16 x,
+    <= 8 bits, M > 16)."""
+    m, k = x.shape
+    aligned = (m > SPLIT_K_MAX_M and x.dtype == torch.bfloat16
+               and spec.bits <= 8
+               and tma_aligned(k, words.shape[1], x.data_ptr(),
+                               words.data_ptr()))
+    return launch_plan(m, k, n, x.dtype, spec.bits, _sms(x.device), aligned)
+
+
 def _lib() -> ctypes.CDLL:
     return _build.bind("rmmec_matmul", _ARGTYPES)
 
@@ -326,8 +402,8 @@ def rmmec_matmul(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor,
                     ("mask", mask)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
+    plan = call_plan(x, words, spec, n)
     m, k = x.shape
-    plan = launch_plan(m, k, n, x.dtype, spec.bits, _sms(x.device))
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     scratch = counters = table = None
     if plan.route == "stream":
@@ -356,6 +432,8 @@ def rmmec_matmul(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor,
     rmmec_matmul.launches += 1
     if plan.route == "stream":
         stream_route.launches += 1
+    elif plan.route == "wgmma":
+        wgmma_route.launches += 1
     return out
 
 

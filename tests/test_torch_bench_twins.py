@@ -172,9 +172,9 @@ def test_kernel_table_pairs_every_wrapper():
     ``X_plain`` beside it and a launch counter; the port's ``ref.py``
     and the reference's both define the oracle the table names, and the
     reference's fallback the table names exists.  No port wrapper is
-    left out of the table (the route counters ``wide_route`` and
-    ``stream_route`` count launches of one route of a wrapper beside its
-    own count)."""
+    left out of the table (the route counters ``wide_route``,
+    ``stream_route`` and ``wgmma_route`` count launches of one route of a
+    wrapper beside its own count)."""
     import importlib
     table = _kernel_table()
     assert len(table) == 6
@@ -208,4 +208,5 @@ def test_kernel_table_pairs_every_wrapper():
                         node.targets[0].attr == "launches":
                     counted.add((fn, node.targets[0].value.id))
     assert counted - {("flash_decode.py", "wide_route"),
-                      ("rmmec_matmul.py", "stream_route")} == wrappers
+                      ("rmmec_matmul.py", "stream_route"),
+                      ("rmmec_matmul.py", "wgmma_route")} == wrappers

@@ -148,13 +148,16 @@ def test_kernel_vs_plain_on_card(cuda, name, group, stacked):
 @pytest.mark.parametrize("name", ["fp4", "posit8_0", "posit16_1"])
 @pytest.mark.parametrize("group", [None, 32])
 @pytest.mark.parametrize("xdtype", ["bfloat16", "float32"])
-def test_kernel_rows_bitwise_on_card(cuda, name, group, xdtype):
+@pytest.mark.parametrize("k", [1100, 896])
+def test_kernel_rows_bitwise_on_card(cuda, name, group, xdtype, k):
     """A row's output is bitwise the same whatever M is (split-K, 64- and
-    128-row tiles, the streaming and SIMT kernels) and whatever the other
-    rows hold, at a K that is not a multiple of the 128-row chunk."""
-    w = torch.from_numpy(_weight((1100, 4864), 9, zero_rows=512))
+    128-row tiles, the wgmma route, the streaming and SIMT kernels) and
+    whatever the other rows hold, at a K that is not a multiple of the
+    128-row chunk (1100) and at a TMA-aligned one whose M = 1024 calls take
+    the wgmma route (896, qwen2-0.5b's width; 512 gated rows)."""
+    w = torch.from_numpy(_weight((k, 4864), 9, zero_rows=512))
     t = tops.pack_tensor(tfmt.FORMATS[name], w.to(cuda), group_size=group)
-    x = torch.randn(1024, 1100, device=cuda).to(getattr(torch, xdtype))
+    x = torch.randn(1024, k, device=cuda).to(getattr(torch, xdtype))
 
     def run(xx):
         return rmmec_matmul(xx.contiguous(), t.words, t.scales, t.mask,
@@ -163,7 +166,7 @@ def test_kernel_rows_bitwise_on_card(cuda, name, group, xdtype):
     full = run(x)
     for m in (256, 17, 16, 8, 1):
         assert torch.equal(run(x[:m]), full[:m]), m
-    other = torch.randn(1024, 1100, device=cuda).to(x.dtype)
+    other = torch.randn(1024, k, device=cuda).to(x.dtype)
     other[5] = x[5]
     other[700] = x[700]
     mixed = run(other)

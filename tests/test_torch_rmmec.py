@@ -6,6 +6,7 @@ strips and its decode tables (every code rebuilt with the kernel's
 integer formula), and the plan's constants against
 ``csrc/rmmec_matmul.cu``."""
 
+import inspect
 import os
 import re
 import sys
@@ -285,3 +286,338 @@ def test_ablation_copies_patch_the_committed_source():
                for name, text in sources.items() if name != "committed")
     assert set(ab.STREAM_VARIANTS) | set(ab.TENSOR_VARIANTS) \
         | {"simt_8_rows"} == set(ab.VARIANTS)
+
+
+def test_probe_is_built_by_the_ablation_only():
+    """The wgmma-vs-mma.sync probe lives in the ablation's own source,
+    which includes the committed .cu: the shipped library neither builds
+    nor binds it, and the ablation binds its nine arguments."""
+    from repro_torch.benchmarks import rmmec_ablation as ab
+    with open(os.path.join(_build.CSRC_DIR, "rmmec_matmul.cu")) as f:
+        shipped = f.read()
+    assert "probe_kernel" not in shipped
+    assert "rmmec_wgmma_probe" not in rm._ARGTYPES
+    with open(ab.PROBE_CU) as f:
+        probe = f.read()
+    assert '#include "rmmec_matmul.cu"' in probe
+    sig = re.search(r'extern "C" int rmmec_wgmma_probe\(([^)]*)\)', probe)
+    assert len(sig.group(1).split(",")) \
+        == len(ab.PROBE_ARGTYPES["rmmec_wgmma_probe"]) == 9
+
+
+# ---------------------------------------------------------------------------
+# the wgmma route (bf16 x, <= 8-bit codes, M > 16, operands TMA can address)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("xdtype,bits,m,k,n,aligned,route", [
+    (torch.bfloat16, 8, 1024, 896, 896, True, "wgmma"),
+    (torch.bfloat16, 4, 1024, 896, 4864, True, "wgmma"),
+    (torch.bfloat16, 4, 1024, 4864, 896, True, "wgmma"),
+    (torch.bfloat16, 8, 4096, 896, 896, True, "tile128"),
+    (torch.bfloat16, 8, 256, 12288, 12288, True, "wgmma"),
+    (torch.bfloat16, 8, 1024, 896, 128, True, "tile64"),
+    (torch.bfloat16, 8, 256, 896, 896, True, "tile64"),
+    (torch.bfloat16, 4, 256, 896, 4864, True, "tile128"),
+    (torch.bfloat16, 8, 1024, 2048, 2048, True, "tile128"),
+    (torch.bfloat16, 4, 1024, 896, 4864, False, "tile128"),
+    (torch.bfloat16, 8, 1024, 896, 896, False, "tile64"),
+    (torch.bfloat16, 8, 16, 896, 896, True, "split_k"),
+    (torch.bfloat16, 4, 1, 4864, 896, True, "split_k"),
+    (torch.float32, 8, 1024, 896, 896, True, "simt"),
+    (torch.float32, 4, 8, 896, 896, True, "stream"),
+    (torch.bfloat16, 16, 1024, 896, 896, True, "simt"),
+    (torch.bfloat16, 16, 8, 896, 896, True, "stream")])
+def test_route_per_dtype_bits_m_and_alignment(xdtype, bits, m, k, n, aligned,
+                                              route):
+    """wgmma takes bf16 x with codes of <= 8 bits above 16 rows where TMA
+    can address the operands and its grid ends first (wgmma_faster); the
+    64- and 128-row tiles keep every other such call; M <= 16 and the f32
+    routes do not look at alignment."""
+    plan = rm.launch_plan(m, k, n, xdtype, bits, aligned=aligned)
+    assert plan.route == route
+    assert rm.wgmma_route(m, n, xdtype, bits, aligned) == \
+        (route == "wgmma")
+
+
+def _grid_costs(m, n, sms):
+    """Each route's waves for an (m, n) output on ``sms`` SMs, counted
+    block by block, times WAVE_COST: (wgmma, the tile route the plan takes
+    otherwise, that route)."""
+    def blocks(bm, bn):
+        return len([(r, c) for r in range(0, m, bm) for c in range(0, n, bn)])
+
+    def waves(count, per_sm):
+        w = 0
+        while count > 0:
+            count -= per_sm * sms
+            w += 1
+        return w
+    wgmma = waves(blocks(128, 64), 1)
+    if 2 * blocks(128, 128) >= sms:
+        return wgmma, rm.WAVE_COST["tile128"] * waves(blocks(128, 128), 1), \
+            "tile128"
+    t64 = blocks(64, 64)
+    if t64 <= sms:     # one 64 x 64 block an SM: it ends before a wgmma tile
+        return wgmma, None, "tile64"
+    return wgmma, rm.WAVE_COST["tile64"] * waves(t64, 2), "tile64"
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+def test_wgmma_faster_compares_the_grids_waves(sms):
+    """wgmma_faster is the wave count of the persistent 128 x 64 grid
+    against the tile route's waves times the cost of its wave, over a
+    grid of M and N on cards of different SM counts; the plan takes the
+    tile route it would take without wgmma wherever wgmma is not faster."""
+    for m in list(range(17, 300, 37)) + [512, 768, 1024, 1536, 2048, 4096]:
+        for n in (64, 128, 300, 896, 2048, 4864, 12288, 33792):
+            wg, tile, route = _grid_costs(m, n, sms)
+            want = tile is not None and wg < tile
+            assert rm.wgmma_faster(m, n, sms) == want, (m, n, sms)
+            plan = rm.launch_plan(m, 896, n, torch.bfloat16, 8, sms,
+                                  aligned=True)
+            assert plan.route == ("wgmma" if want else route), (m, n)
+
+
+@pytest.mark.parametrize("m,n,route", [
+    (1024, 896, "wgmma"),     # 224 blocks of 64 x 64 (two on some SMs)
+                              # vs 112 wgmma tiles: one wave
+    (256, 896, "tile64"),     # 56 blocks of 64 x 64: one an SM
+    (1024, 128, "tile64"),    # 32 blocks of 64 x 64
+    (1024, 4864, "wgmma"),    # 304 tile128 blocks (3 waves x 1.75) vs 608
+                              # tiles (5 waves)
+    (256, 4864, "tile128"),   # 76 blocks (1 wave) vs 152 tiles (2)
+    (1024, 2048, "tile128"),  # 128 blocks (1 wave) vs 256 tiles (2)
+    (256, 12288, "wgmma"),    # 192 blocks (2 waves) vs 384 tiles (3)
+    (256, 33792, "tile128")]) # 528 blocks (4 waves) vs 1056 tiles (8)
+def test_wgmma_faster_by_hand(m, n, route):
+    """Hand-counted waves on the H100's 132 SMs."""
+    plan = rm.launch_plan(m, 2048, n, torch.bfloat16, 4, aligned=True)
+    assert plan.route == route
+
+
+def test_call_plan_reads_alignment_only_for_the_route():
+    """call_plan reads the operands' pointers only for a call the wgmma
+    route can take: an M <= 16 (decode) call, f32 x or posit16 never
+    asks."""
+    src = inspect.getsource(rm.call_plan)
+    body = src[src.index("aligned = "):]
+    first = body.index("tma_aligned(")
+    for check in ("m > SPLIT_K_MAX_M", "x.dtype == torch.bfloat16",
+                  "spec.bits <= 8"):
+        assert body.index(check) < first
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_k1100_n300_stay_on_the_tiles(bits, stacked):
+    """Phase 2's K = 1100, N = 300 shapes: K is no multiple of 64, and the
+    stacked layout's rows of words are no multiple of 16 bytes, so every
+    M > 16 call stays on tile64 / tile128."""
+    from repro_torch.core import formats
+    from repro_torch.kernels.ops import pack_tensor
+    spec = formats.FP4 if bits == 4 else formats.POSIT8
+    w = torch.zeros((2, 1100, 300) if stacked else (1100, 300))
+    t = pack_tensor(spec, w)
+    t = t[1] if stacked else t
+    assert not rm.tma_aligned(1100, t.words.shape[1], 0, 0)
+    for m in (17, 64, 256, 1024):
+        assert rm.launch_plan(m, 1100, 300, torch.bfloat16, bits,
+                              aligned=False).route in ("tile64", "tile128")
+    # K = 1152 in the 2-D layout (N padded to 512): TMA-aligned
+    t2 = pack_tensor(spec, torch.zeros(1152, 300))
+    assert rm.tma_aligned(1152, t2.words.shape[1], 0, 16)
+
+
+def test_tma_alignment_rule():
+    assert rm.tma_aligned(896, 608, 0, 256)
+    assert not rm.tma_aligned(896 + 8, 608, 0, 256)      # K % 64
+    assert not rm.tma_aligned(896, 75, 0, 256)           # 300-row stride
+    assert not rm.tma_aligned(896, 608, 8, 256)          # x's pointer
+    assert not rm.tma_aligned(896, 608, 0, 4)            # the words'
+
+
+@pytest.mark.parametrize("k,n,m", [
+    (896, 896, 1024), (896, 4864, 1024), (4864, 896, 1024),
+    (12288, 12288, 256), (12288, 1024, 768), (2048, 2048, 512)])
+def test_wgmma_grid(k, n, m):
+    """A persistent block an SM (at most) over 128 x 64 tiles; the chunk
+    partials are those of every other tensor route."""
+    plan = rm.launch_plan(m, k, n, torch.bfloat16, 4, aligned=True)
+    tiles = -(-m // 128) * -(-n // 64)
+    assert plan.route == "wgmma"
+    assert plan.grid == (min(tiles, rm.H100_SMS), 1)
+    assert plan.threads == 288 and plan.chunks == rm.chunk_bounds(k)
+    assert (plan.scratch_floats, plan.counters) == (0, 0)
+
+
+def _cu_source():
+    with open(os.path.join(_build.CSRC_DIR, "rmmec_matmul.cu")) as f:
+        return f.read()
+
+
+def test_wgmma_constants_match_the_cuda_source():
+    src = _cu_source()
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+
+    consumers = int(const("WG_CONSUMERS"))
+    assert consumers == rm.WG_CONSUMERS
+    assert const("WG_BM") == "64 * WG_CONSUMERS"
+    assert int(const("WG_BN")) == rm.TILES["wgmma"][1] == 64
+    assert const("WG_THREADS") == "128 * WG_CONSUMERS + 32"
+    assert rm.TILES["wgmma"] == (64 * consumers, 64, 128 * consumers + 32)
+    assert int(const("WG_STAGES")) == rm.WG_STAGES
+    assert int(const("KC")) == rm.KC == 128
+    assert "route == ROUTE_WGMMA" in src and "ROUTE_WGMMA = 5" in src
+    # the C side's alignment rule and grid are the Python plan's
+    rule = src[src.index("bool tma_aligned(const Operands& op, int per)"):]
+    rule = rule[:rule.index("}")]
+    assert "op.K % 64 == 0" in rule and "(op.Np / per) % 4 == 0" in rule
+    assert rule.count("& 15) == 0") == 2
+    assert "const int grid = std::min(tiles, sm_count());" in src
+    # the A and B descriptors: a k16 step moves B by 16 rows of 128 bytes
+    # and A by 32 bytes within a 64-column box
+    assert ("gmma_desc_sw128(bs + ks * 16 * 128, KC * 128, 1024)"
+            in src)
+    assert "gmma_desc_sw128(a0 + (ks / 4) * x_box + (ks % 4) * 32, 16, 1024)" \
+        in src
+
+
+def _cu_function(name, src=None):
+    """A one-line `return <expr>;` constexpr function of the .cu source
+    (or ``src``) as a Python function (C's / on non-negative ints is //)."""
+    src = _cu_source() if src is None else src
+    m = re.search(rf"constexpr int {name}\(([^)]*)\) \{{\s*return ([^;]+);",
+                  src)
+    args = [a.split()[-1] for a in m.group(1).split(",")]
+    expr = m.group(2).replace("/", "//").replace("\n", " ")
+    if "?" in expr:   # BITS == 8 ? a : b
+        cond, rest = expr.split("?")
+        a, b = rest.split(":")
+        expr = f"({a}) if ({cond}) else ({b})"
+    return eval(f"lambda {', '.join(args)}: {expr}", {"KC": rm.KC})
+
+
+def _swizzle128(a):
+    """The 128-byte swizzle on a byte offset inside a 1024-byte atom."""
+    return a ^ (((a >> 7) & 7) << 4)
+
+
+def test_b_slot_layout_is_wgmmas_swizzled_n_major_layout():
+    """The decoded B slot (wg_b_offset, read from the .cu): every (k, n)
+    of a KC x 128 chunk of bf16 weights at its own 2-byte place, filling
+    the slot's KC * 256 bytes exactly; each 8 x 8 core matrix (8 rows of K,
+    8 columns of N: one 16-byte chunk per row) where the descriptor says:
+    atom (K group k // 8, N half n // 64) at (k // 8) * SBO + (n // 64) *
+    LBO with SBO = 1024 and LBO = KC * 128 (the values the kernel passes),
+    rows 128 bytes apart inside the atom, 16-byte chunks swizzled by 128
+    bytes; and a k16 step two atoms on."""
+    off = _cu_function("wg_b_offset")
+    kc, lbo, sbo = rm.KC, rm.KC * 128, 1024
+    seen = set()
+    for k in range(kc):
+        for n in range(128):
+            o = off(k, n)
+            assert o % 2 == 0 and 0 <= o < kc * 256
+            assert o == (n // 64) * lbo + (k // 8) * sbo \
+                + _swizzle128(128 * (k % 8) + 2 * (n % 64))
+            seen.add(o)
+    assert len(seen) == kc * 128                      # a bijection
+    for k0 in range(0, kc, 8):                        # core matrices
+        for n0 in range(0, 128, 8):
+            rows = [off(k, n0) for k in range(k0, k0 + 8)]
+            assert all(off(k, n0 + j) == off(k, n0) + 2 * j
+                       for k in range(k0, k0 + 8) for j in range(8))
+            base = (k0 // 8) * sbo + (n0 // 64) * lbo
+            assert sorted(r - base for r in rows) == [
+                128 * i + 16 * (((n0 % 64) // 8) ^ i) for i in range(8)]
+    assert off(16, 0) - off(0, 0) == 2 * sbo          # one k16 step
+
+
+def test_x_tile_layout_is_tmas_128_byte_swizzle():
+    """wg_x_offset (the x tile as the ablation's probe writes it and as the
+    TMA load of a chunk lays it out): two 64-column boxes of 128-byte rows,
+    16-byte chunks swizzled by 128 bytes, a bijection onto the tile."""
+    from repro_torch.benchmarks import rmmec_ablation as ab
+    with open(ab.PROBE_CU) as f:
+        off = _cu_function("wg_x_offset", f.read())
+    rows, box = 128, 128 * 128
+    seen = {off(r, k, box) for r in range(rows) for k in range(rm.KC)}
+    assert len(seen) == rows * rm.KC
+    for r in range(rows):
+        for k in range(rm.KC):
+            assert off(r, k, box) == (k // 64) * box + 1024 * (r // 8) \
+                + _swizzle128(128 * (r % 8) + 2 * (k % 64))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_word_pieces_cover_the_chunk_in_row_groups(bits):
+    """wg_piece_row and wg_raw_piece (read from the .cu): the consumer
+    threads' pieces of a chunk's words cover its KC rows x 64 columns
+    once; eight consecutive threads take one piece column of eight
+    consecutive rows, which TMA's swizzle of the words (64-byte rows for
+    8-bit codes, 32-byte rows for 4-bit ones) spreads over all 32 banks
+    and whose 16-byte stores into the B slot land in eight bank groups."""
+    src = _cu_source()
+    body = src[src.index("__device__ __forceinline__ int wg_piece_row"):]
+    body = body[:body.index("\n}\n")]
+    assert "const int s = tid + j * NC;" in body
+    assert "return s / (8 * PIECES) * 8 + s % 8;" in body
+    assert "const int pc = (threadIdx.x / 8) % PIECES;" in src
+    m = re.search(r"constexpr int wg_raw_piece\(int r, int pc\) \{\s*"
+                  r"return BITS == 8 \? ([^:]+) : ([^;]+);", src)
+    expr = (m.group(1) if bits == 8 else m.group(2)).replace("/", "//")
+    piece = eval(f"lambda r, pc: {expr}")
+    nc = 128 * rm.WG_CONSUMERS
+    pieces = rm.TILES["wgmma"][1] // (32 // bits) // 4
+    per_thread = rm.KC * pieces // nc
+    assert {piece(r, pc) for r in range(rm.KC) for pc in range(pieces)} \
+        == set(range(rm.KC * pieces))
+
+    def row(tid, j):
+        s = tid + j * nc
+        return s // (8 * pieces) * 8 + s % 8
+
+    cover = {(row(tid, j), (tid // 8) % pieces)
+             for tid in range(nc) for j in range(per_thread)}
+    assert cover == {(r, pc) for r in range(rm.KC) for pc in range(pieces)}
+    off = _cu_function("wg_b_offset")
+    for t0 in range(0, nc, 8):
+        pc = (t0 // 8) % pieces
+        for j in range(per_thread):
+            rows = [row(t, j) for t in range(t0, t0 + 8)]
+            assert rows == list(range(rows[0], rows[0] + 8))
+            assert len({piece(r, pc) * 16 % 128 for r in rows}) == 8
+            for i in range(32 // bits // 2):
+                n = (pc * (32 // bits // 2) + i) * 8
+                assert len({off(r, n) % 128 // 16 for r in rows}) == 8
+
+
+def test_wgmma_route_counts_its_launches():
+    assert isinstance(rm.wgmma_route.launches, int)
+    assert "wgmma_route.launches += 1" in open(rm.__file__).read()
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_wgmma_shared_memory_fits_a_block(bits):
+    """WgSmem's sum (the x ring, the words' ring, two B slots, the table's
+    copies, the mask bytes, the barriers, 1024 bytes of alignment slack),
+    rebuilt from the .cu's constants, fits the 232,448 bytes a block may
+    have; the .cu asserts the same at compile time."""
+    src = _cu_source()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    bm = 64 * rm.WG_CONSUMERS
+    bn, stages = const("WG_BN"), const("WG_STAGES")
+    ls = 5 if bits == 4 else 4
+    assert "static constexpr int LS = BITS == 4 ? 5 : 4;" in src
+    x_bytes = 2 * bm * 64 * 2
+    raw_bytes = rm.KC * bn * bits // 8
+    total = (stages * (x_bytes + raw_bytes) + 2 * rm.KC * 128 + (1024 << ls)
+             + const("WG_MASK_BYTES") + 4 * stages * 8 + 1024)
+    assert total <= 232448
+    assert x_bytes % 1024 == 0 and raw_bytes % 1024 == 0
+    assert "BYTES <= 232448" in src
