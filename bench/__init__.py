@@ -1,0 +1,6 @@
+"""The benchmark of ``repro_torch``: continuous serving on one H100.
+
+``python3 bench/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of ``BENCHMARK.json`` once and prints its
+result as the last line of standard output.  Nothing here imports JAX
+or the JAX package; ``reference/`` imports nothing of the program."""

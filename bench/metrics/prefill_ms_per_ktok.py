@@ -1,0 +1,8 @@
+"""Milliseconds of the engine's prefill spans per 1000 prompt tokens it
+computed in the window."""
+
+from bench.metrics._lib import *  # noqa: F401,F403
+
+
+def read(rec):
+    return prefill_ms_per_ktok(rec)
