@@ -128,7 +128,7 @@ def serve_streams(dev, disagg: bool, decode_steps: int, log=print) -> dict:
             f"hits ({px.hit_tokens} prefill tokens skipped)")
     log(f"decode loop: K={eng.decode_steps}, {eng.decode_dispatches} "
         f"dispatches, {eng.page_table_uploads} page-table uploads, "
-        f"{eng.logits_host_bytes} logits bytes to host")
+        f"{eng.token_host_bytes} token bytes to host")
     log("stream SLOs (ms):")
     for name, s in recorder.slo_summary().items():
         log(f"  {name:>17}: p50 {s['p50']:8.2f}  p95 {s['p95']:8.2f}  "

@@ -27,8 +27,15 @@ runs the decode dispatch before it.
 ``--trace OUT.json`` records the paged engines' request-lifecycle events
 and step spans and writes a Chrome-trace JSON after the run;
 ``--metrics`` prints a Prometheus text snapshot of the engine's metric
-registry after the run.  The static engine carries no telemetry and
-says so.
+registry after the run.  ``--profile OUT.json`` runs ``torch.profiler``
+over the run's steps after its first two (the kernels' first use),
+writes ONE Chrome trace that holds the profiler's events (the card's
+kernels on a CUDA device) and the engine's spans, down to the forward's
+sub-blocks, on the profiler's clock, and prints the card's idle seconds
+by the innermost span the host was in when each idle gap began.  The
+static engine carries no telemetry and says so.
+
+  ... --continuous --batch 8 --prefill-chunk 16 --profile prof.json
 
 ``--arch`` takes all ten registered configs.  The recurrent and hybrid
 families keep posit8 state slabs in the paged engines and prefill on the
@@ -48,6 +55,7 @@ It runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -57,10 +65,14 @@ from .. import resolve_device
 from ..configs import get_config
 from ..core.policy import PrecisionPolicy
 from ..models import zoo
-from ..obs import TraceRecorder
+from ..obs import TraceRecorder, clock_offset_us
 from ..parallel.sharding import split_devices
 from ..serve.disagg import DisaggEngine
 from ..serve.engine import ContinuousEngine, ServeEngine
+
+# engine steps before ``--profile`` starts the profiler: the first use
+# of every kernel (and, on the card, its load) falls in them
+PROFILE_AFTER = 2
 
 
 def _static(args, cfg, params, policy, device, gen) -> None:
@@ -78,9 +90,45 @@ def _static(args, cfg, params, policy, device, gen) -> None:
     print(out[:, args.prompt_len:][:2])
 
 
+def _profiled_run(eng, more, rec, path: str, device) -> None:
+    """Step ``eng`` while ``more()``, under ``torch.profiler`` after the
+    first ``PROFILE_AFTER`` steps; write the profiler's Chrome trace to
+    ``path`` with ``rec``'s spans placed on its clock (``rec.anchor``),
+    and print the card's idle seconds by span."""
+    cuda = device.type == "cuda"
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    for _ in range(PROFILE_AFTER):
+        if more():
+            eng.step()
+    if cuda:
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        stamp = rec.anchor()
+        while more():
+            eng.step()
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    offset = clock_offset_us(events, stamp)
+    gaps = rec.gaps_by_span(events, offset)
+    trace["traceEvents"] = events + rec.chrome_trace(offset)["traceEvents"]
+    with open(path, "w") as f:
+        json.dump(trace, f)
+    print(f"wrote the profiler's trace with the engine's spans on its clock "
+          f"to {path}; the card idle by span (s):")
+    for kind, sec in sorted(gaps.items(), key=lambda kv: -kv[1]):
+        print(f"  {kind:>20}: {sec:.6f}")
+
+
 def _continuous(args, cfg, params, policy, device) -> None:
     from ..kernels.flash_decode import default_kv_block
-    rec = TraceRecorder() if (args.trace or args.metrics) else None
+    rec = TraceRecorder() \
+        if (args.trace or args.metrics or args.profile) else None
     rng = np.random.default_rng(args.seed)
     max_len = args.prompt_len + args.steps + 8
     page_size = args.page_size
@@ -124,7 +172,12 @@ def _continuous(args, cfg, params, policy, device) -> None:
             steps = max(1, min(steps, max_len - prompt.size))
         rids.append(eng.submit(prompt, steps))
     t0 = time.perf_counter()
-    eng.run()
+    if args.profile:
+        more = (lambda: eng.has_work) if args.disagg \
+            else (lambda: eng.scheduler.has_work)
+        _profiled_run(eng, more, rec, args.profile, device)
+    else:
+        eng.run()
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -222,6 +275,11 @@ def main() -> None:
                     help="print a Prometheus text snapshot of the "
                          "engine's metric registry after the run; paged "
                          "engines only")
+    ap.add_argument("--profile", metavar="OUT.json", default=None,
+                    help="run torch.profiler over the steps after the "
+                         "first two, write its Chrome trace with the "
+                         "engine's spans on its clock and print the "
+                         "card's idle seconds by span; paged engines only")
     args = ap.parse_args()
 
     device = resolve_device(args.device)
@@ -237,7 +295,7 @@ def main() -> None:
     if args.continuous or args.disagg:
         _continuous(args, cfg, params, policy, device)
     else:
-        if args.trace or args.metrics:
+        if args.trace or args.metrics or args.profile:
             print("note: --trace/--metrics need the paged engines "
                   "(--continuous/--disagg); the static engine carries "
                   "no telemetry")

@@ -13,6 +13,12 @@ blocked loops on a CPU cache: ``flash_decode`` for a contiguous cache,
 continuous serving.  Decode and paged chunk prefill write the new
 tokens' codes into the cache or pool in place (the reference returns an
 updated copy); the caller owns the cache.
+
+The serving sub-blocks (``attn_decode``, ``attn_prefill_chunk``) take
+the residual stream with the block's pre-norm and return the stream
+with their output added, so that each stage is one ``obs.host_span``:
+``fwd.attn_in`` (pre-norm, q/k/v, RoPE), ``fwd.kv_write``, ``fwd.attn``
+and ``fwd.attn_out`` (output projection and residual add).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from ..kernels.flash_decode import (flash_decode, flash_decode_plain,
                                     paged_flash_decode,
                                     paged_flash_prefill)
 from ..kernels.ref import dequant_kv_ref, scale_cols
+from ..obs import host_span
 from . import layers as L
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "attn_prefill_chunk",
@@ -222,141 +229,171 @@ def _pool_write(pool, k, v, index) -> None:
         pool[f"{name}_scale"][index] = scale
 
 
-def attn_prefill_chunk(p, x, cfg, positions, ctx):
-    """Causal self-attention of ONE prefill chunk; x (B, C, D) at absolute
-    ``positions`` (B, C).  ``ctx`` is what the chunk attends to besides
-    itself:
+def attn_prefill_chunk(p, ln1, x, cfg, positions, ctx):
+    """Causal self-attention sub-block of ONE prefill chunk; x (B, C, D)
+    the residual stream at absolute ``positions`` (B, C), normed by
+    ``ln1`` first.  ``ctx`` is what the chunk attends to besides itself:
 
       * CARRY ``{"k", "v"}`` (B, T, Kh, Dh) bf16: the already-prefilled
         prefix, possibly preallocated past ``start`` (dead slots are
-        masked).  Returns (out, {"k", "v"}) with the chunk's own bf16 kv.
+        masked).  Returns (x + out, {"k", "v"}) with the chunk's own
+        bf16 kv.
       * PAGED (the dict carries ``page_table``): the pool leaves and
         (B, NP) page table.  The chunk's kv is quantized and written into
         its pages first, in place, then attention reads prefix + chunk
-        back through the page table.  Returns (out, None).
+        back through the page table.  Returns (x + out, None).
     """
     if "page_table" in ctx:
-        return _attn_prefill_paged(p, x, cfg, positions, ctx), None
+        return _attn_prefill_paged(p, ln1, x, cfg, positions, ctx), None
     b, c, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions)
-    g = cfg.n_heads // cfg.n_kv_heads
-    hd = q.shape[-1]
-    q5 = q.reshape(b, c, cfg.n_kv_heads, g, hd)
-    t = ctx["k"].shape[1]
-    kk = torch.cat([ctx["k"].to(k.dtype), k], dim=1) if t else k
-    vv = torch.cat([ctx["v"].to(v.dtype), v], dim=1) if t else v
-    bias = _causal_bias(c, t + c, t, x.device)
-    if t:
-        # slots of a preallocated carry at or past the chunk's start hold
-        # no context yet; live slots add exactly 0.0
-        kidx = torch.arange(t + c, device=x.device)
-        ctx_live = (kidx[None] < positions[:, :1]) | (kidx[None] >= t)
-        bias = bias + torch.where(ctx_live, 0.0, _NEG)[:, None, None, None, :]
-    out = _attend_block(q5, kk, vv, bias).reshape(b, c, cfg.n_heads * hd)
-    return L.dense(p["wo"], out), {"k": k.to(torch.bfloat16),
-                                   "v": v.to(torch.bfloat16)}
+    with host_span("fwd.attn_in"):
+        h = L.rmsnorm(ln1, x)
+        q, k, v = _qkv(p, h, cfg, positions)
+    with host_span("fwd.attn"):
+        g = cfg.n_heads // cfg.n_kv_heads
+        hd = q.shape[-1]
+        q5 = q.reshape(b, c, cfg.n_kv_heads, g, hd)
+        t = ctx["k"].shape[1]
+        kk = torch.cat([ctx["k"].to(k.dtype), k], dim=1) if t else k
+        vv = torch.cat([ctx["v"].to(v.dtype), v], dim=1) if t else v
+        bias = _causal_bias(c, t + c, t, x.device)
+        if t:
+            # slots of a preallocated carry at or past the chunk's start
+            # hold no context yet; live slots add exactly 0.0
+            kidx = torch.arange(t + c, device=x.device)
+            ctx_live = (kidx[None] < positions[:, :1]) | (kidx[None] >= t)
+            bias = bias + torch.where(ctx_live, 0.0,
+                                      _NEG)[:, None, None, None, :]
+        out = _attend_block(q5, kk, vv, bias).reshape(b, c, cfg.n_heads * hd)
+    with host_span("fwd.attn_out"):
+        x = x + L.dense(p["wo"], out)
+    return x, {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
 
 
-def _attn_prefill_paged(p, x, cfg, positions, ctx):
+def _attn_prefill_paged(p, ln1, x, cfg, positions, ctx):
     """Paged chunk prefill: write the chunk's kv into its pages
     (page-aligned chunk slots), then attend to prefix + chunk through
-    the page table."""
+    the page table; returns x + the attention output."""
     b, c, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions)
-    psize = ctx["k_codes"].shape[1]
-    if c % psize:
-        raise ValueError(f"chunk of {c} tokens is not whole pages of {psize}")
-    page_table = ctx["page_table"]
-    start = positions[:, 0].to(torch.int32).contiguous()
-    nblk = c // psize
-    npp = page_table.shape[1]
-    blk_ids = start[:, None].long() // psize \
-        + torch.arange(nblk, device=x.device)[None]
-    # pad blocks of a final chunk past the table go to the parking page
-    pgs = torch.where(blk_ids < npp,
-                      page_table.gather(1, blk_ids.clamp(max=npp - 1)),
-                      0).reshape(-1).long()
-    kh, hd = cfg.n_kv_heads, q.shape[-1]
-    _pool_write(ctx, k.reshape(b * nblk, psize, kh, hd),
-                v.reshape(b * nblk, psize, kh, hd), pgs)
-    q5 = q.reshape(b, c, kh, cfg.n_heads // kh, hd)
-    out5 = paged_flash_prefill(q5, ctx["k_codes"], ctx["k_scale"],
-                               ctx["v_codes"], ctx["v_scale"], page_table,
-                               start, softcap=cfg.attn_logit_softcap)
-    return L.dense(p["wo"], out5.to(x.dtype).reshape(b, c, cfg.n_heads * hd))
+    with host_span("fwd.attn_in"):
+        h = L.rmsnorm(ln1, x)
+        q, k, v = _qkv(p, h, cfg, positions)
+    with host_span("fwd.kv_write"):
+        psize = ctx["k_codes"].shape[1]
+        if c % psize:
+            raise ValueError(f"chunk of {c} tokens is not whole pages of "
+                             f"{psize}")
+        page_table = ctx["page_table"]
+        start = positions[:, 0].to(torch.int32).contiguous()
+        nblk = c // psize
+        npp = page_table.shape[1]
+        blk_ids = start[:, None].long() // psize \
+            + torch.arange(nblk, device=x.device)[None]
+        # pad blocks of a final chunk past the table go to the parking page
+        pgs = torch.where(blk_ids < npp,
+                          page_table.gather(1, blk_ids.clamp(max=npp - 1)),
+                          0).reshape(-1).long()
+        kh, hd = cfg.n_kv_heads, q.shape[-1]
+        _pool_write(ctx, k.reshape(b * nblk, psize, kh, hd),
+                    v.reshape(b * nblk, psize, kh, hd), pgs)
+    with host_span("fwd.attn"):
+        q5 = q.reshape(b, c, kh, cfg.n_heads // kh, hd)
+        out5 = paged_flash_prefill(q5, ctx["k_codes"], ctx["k_scale"],
+                                   ctx["v_codes"], ctx["v_scale"],
+                                   page_table, start,
+                                   softcap=cfg.attn_logit_softcap)
+    with host_span("fwd.attn_out"):
+        return x + L.dense(p["wo"], out5.to(h.dtype).reshape(
+            b, c, cfg.n_heads * hd))
 
 
-def _attn_decode_paged(p, x, cfg, layer_cache):
+def _attn_decode_paged(p, ln1, x, cfg, layer_cache):
     """Paged one-token decode: each request writes and reads posit8 pages
     through its page-table row at its OWN position (``page_table``
     (B, NP) and ``positions`` (B,) ride in the layer cache).  The new
     token's codes land at pool slot ``(page_table[b, pos_b // page],
-    pos_b % page)``, in place; attention runs over the live pages."""
+    pos_b % page)``, in place; attention runs over the live pages.
+    Returns x + the attention output."""
     b = x.shape[0]
     page_table = layer_cache["page_table"]
     positions = layer_cache["positions"]
-    pos2 = positions[:, None]
-    if cfg.rope_kind == "mrope":
-        # text continuation: the t/h/w streams all advance with the 1-D
-        # position, as on the contiguous decode path
-        pos2 = pos2.expand(3, b, 1)
-    q, k_new, v_new = _qkv(p, x, cfg, pos2)
-    psize = layer_cache["k_codes"].shape[1]
-    pos = positions.long()
-    pg = page_table.gather(1, (pos // psize)[:, None])[:, 0].long()
-    _pool_write(layer_cache, k_new[:, 0], v_new[:, 0], (pg, pos % psize))
-    g = cfg.n_heads // cfg.n_kv_heads
-    hd = q.shape[-1]
-    out4 = paged_flash_decode(q.reshape(b, cfg.n_kv_heads, g, hd),
-                              layer_cache["k_codes"], layer_cache["k_scale"],
-                              layer_cache["v_codes"], layer_cache["v_scale"],
-                              page_table, positions,
-                              softcap=cfg.attn_logit_softcap)
-    return L.dense(p["wo"], out4.to(x.dtype).reshape(b, 1, cfg.n_heads * hd))
+    with host_span("fwd.attn_in"):
+        h = L.rmsnorm(ln1, x)
+        pos2 = positions[:, None]
+        if cfg.rope_kind == "mrope":
+            # text continuation: the t/h/w streams all advance with the
+            # 1-D position, as on the contiguous decode path
+            pos2 = pos2.expand(3, b, 1)
+        q, k_new, v_new = _qkv(p, h, cfg, pos2)
+    with host_span("fwd.kv_write"):
+        psize = layer_cache["k_codes"].shape[1]
+        pos = positions.long()
+        pg = page_table.gather(1, (pos // psize)[:, None])[:, 0].long()
+        _pool_write(layer_cache, k_new[:, 0], v_new[:, 0], (pg, pos % psize))
+    with host_span("fwd.attn"):
+        g = cfg.n_heads // cfg.n_kv_heads
+        hd = q.shape[-1]
+        out4 = paged_flash_decode(q.reshape(b, cfg.n_kv_heads, g, hd),
+                                  layer_cache["k_codes"],
+                                  layer_cache["k_scale"],
+                                  layer_cache["v_codes"],
+                                  layer_cache["v_scale"], page_table,
+                                  positions, softcap=cfg.attn_logit_softcap)
+    with host_span("fwd.attn_out"):
+        return x + L.dense(p["wo"], out4.to(h.dtype).reshape(
+            b, 1, cfg.n_heads * hd))
 
 
-def attn_decode(p, x, cfg, layer_cache, pos: int, pad=None):
-    """One-token decode; x (B, 1, D), ``pos`` the slot being written.
-    Updates ``layer_cache`` in place and returns the attention output.
+def attn_decode(p, ln1, x, cfg, layer_cache, pos: int, pad=None):
+    """One-token decode sub-block; x (B, 1, D) the residual stream,
+    normed by ``ln1`` first, ``pos`` the slot being written.  Updates
+    ``layer_cache`` in place and returns x + the attention output.
     ``pad`` (B,) int32: left-pad widths of a ragged batch -- RoPE
     positions shift to ``pos - pad[b]`` and slots below ``pad[b]`` are
     masked.  A PAGED layer cache (it carries ``page_table`` and
     ``positions``) decodes every request at its own position and
     ignores ``pos``."""
     if "page_table" in layer_cache:
-        return _attn_decode_paged(p, x, cfg, layer_cache)
+        return _attn_decode_paged(p, ln1, x, cfg, layer_cache)
     b = x.shape[0]
-    if pad is None:
-        positions = torch.full((b, 1), pos, dtype=torch.int32,
-                               device=x.device)
-    else:
-        positions = (pos - pad).to(torch.int32)[:, None]
-    if cfg.rope_kind == "mrope":
-        positions = positions.expand(3, b, 1)
-    q, k_new, v_new = _qkv(p, x, cfg, positions)
-    _cache_write(layer_cache, k_new, v_new, pos)
+    with host_span("fwd.attn_in"):
+        h = L.rmsnorm(ln1, x)
+        if pad is None:
+            positions = torch.full((b, 1), pos, dtype=torch.int32,
+                                   device=x.device)
+        else:
+            positions = (pos - pad).to(torch.int32)[:, None]
+        if cfg.rope_kind == "mrope":
+            positions = positions.expand(3, b, 1)
+        q, k_new, v_new = _qkv(p, h, cfg, positions)
+    with host_span("fwd.kv_write"):
+        _cache_write(layer_cache, k_new, v_new, pos)
     g = cfg.n_heads // cfg.n_kv_heads
     hd = q.shape[-1]
-    if "k" not in layer_cache:
-        q4 = q.reshape(b, cfg.n_kv_heads, g, hd)
-        out4 = flash_decode(q4, layer_cache["k_codes"],
-                            layer_cache["k_scale"], layer_cache["v_codes"],
-                            layer_cache["v_scale"], pos, pad=pad,
-                            softcap=cfg.attn_logit_softcap)
-        out = out4.to(x.dtype).reshape(b, 1, cfg.n_heads * hd)
-        return L.dense(p["wo"], out)
-    k, v = layer_cache["k"], layer_cache["v"]
-    q5 = q.reshape(b, 1, cfg.n_kv_heads, g, hd)
-    s = torch.einsum("bqkgd,btkd->bkgqt", q5.float(), k.float())
-    s = s * (1.0 / math.sqrt(hd))
-    if cfg.attn_logit_softcap > 0.0:
-        s = torch.tanh(s / cfg.attn_logit_softcap) * cfg.attn_logit_softcap
-    tpos = torch.arange(k.shape[1], device=x.device)
-    live = tpos[None, None, None, None, :] <= pos
-    if pad is not None:
-        live = live & (tpos[None, None, None, None, :] >=
-                       pad[:, None, None, None, None])
-    s = torch.where(live, s, _NEG)
-    pw = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgqt,btkd->bqkgd", pw.float(), v.float()).to(x.dtype)
-    return L.dense(p["wo"], out.reshape(b, 1, cfg.n_heads * hd))
+    with host_span("fwd.attn"):
+        if "k" not in layer_cache:
+            q4 = q.reshape(b, cfg.n_kv_heads, g, hd)
+            out = flash_decode(q4, layer_cache["k_codes"],
+                               layer_cache["k_scale"],
+                               layer_cache["v_codes"],
+                               layer_cache["v_scale"], pos, pad=pad,
+                               softcap=cfg.attn_logit_softcap).to(h.dtype)
+        else:
+            k, v = layer_cache["k"], layer_cache["v"]
+            q5 = q.reshape(b, 1, cfg.n_kv_heads, g, hd)
+            s = torch.einsum("bqkgd,btkd->bkgqt", q5.float(), k.float())
+            s = s * (1.0 / math.sqrt(hd))
+            if cfg.attn_logit_softcap > 0.0:
+                s = torch.tanh(s / cfg.attn_logit_softcap) \
+                    * cfg.attn_logit_softcap
+            tpos = torch.arange(k.shape[1], device=x.device)
+            live = tpos[None, None, None, None, :] <= pos
+            if pad is not None:
+                live = live & (tpos[None, None, None, None, :] >=
+                               pad[:, None, None, None, None])
+            s = torch.where(live, s, _NEG)
+            pw = torch.softmax(s, dim=-1).to(h.dtype)
+            out = torch.einsum("bkgqt,btkd->bqkgd", pw.float(),
+                               v.float()).to(h.dtype)
+    with host_span("fwd.attn_out"):
+        return x + L.dense(p["wo"], out.reshape(b, 1, cfg.n_heads * hd))

@@ -42,6 +42,7 @@ from .. import resolve_device
 from ..core.formats import torch_dtype
 from ..core.qat import quantize_tree
 from ..kernels.ops import PackedTensor, dequant
+from ..obs import host_span
 from ..parallel.sharding import batch_sum, gather
 from . import attention as A
 from . import layers as L
@@ -101,47 +102,53 @@ def _block_apply(p, x, cfg, mixer: str, use_moe: bool, positions,
     (0.0 without an MoE).  The attention mixer returns
     its prefill kv / chunk kv (None where it wrote in place: decode and
     paged chunk prefill); a recurrent mixer its new state, posit8 again
-    when it came in posit8 (re-quantized in the layout it came in)."""
+    when it came in posit8 (re-quantized in the layout it came in).
+    Decode and chunk prefill of an attention mixer run as the serving
+    sub-block (pre-norm and residual add inside, one ``fwd.*`` span a
+    stage); a block's FFN or MoE is one ``fwd.mlp`` span."""
     aux = 0.0
-    h = L.rmsnorm(p["ln1"], x)
     state_q = None
-    if mixer == "attn":
-        if mode == "decode":
-            h = A.attn_decode(p["attn"], h, cfg, cache, pos, pad)
-            cache = None
-        elif mode == "prefill_chunk":
-            h, cache = A.attn_prefill_chunk(p["attn"], h, cfg, positions,
-                                            cache)
-        else:
+    if mixer == "attn" and mode == "decode":
+        x = A.attn_decode(p["attn"], p["ln1"], x, cfg, cache, pos, pad)
+        cache = None
+    elif mixer == "attn" and mode == "prefill_chunk":
+        x, cache = A.attn_prefill_chunk(p["attn"], p["ln1"], x, cfg,
+                                        positions, cache)
+    else:
+        h = L.rmsnorm(p["ln1"], x)
+        if mixer == "attn":
             h, (k, v) = A.attn_apply(p["attn"], h, cfg, positions, kv_mask)
             cache = None if mode == "train" else \
                 {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
-    elif mixer == "mamba":
-        if cache is not None and "h_codes" in cache:
-            state_q, cache = cache, S.dequantize_state(cache)
-        if mode == "decode":
-            h, cache = S.mamba_decode(p["mamba"], h, cfg, cache)
+        elif mixer == "mamba":
+            if cache is not None and "h_codes" in cache:
+                state_q, cache = cache, S.dequantize_state(cache)
+            if mode == "decode":
+                h, cache = S.mamba_decode(p["mamba"], h, cfg, cache)
+            else:
+                h, cache = S.mamba_apply(p["mamba"], h, cfg, cache)
+            if state_q is not None:
+                cache = S.requantize_state(cache, state_q)
         else:
-            h, cache = S.mamba_apply(p["mamba"], h, cfg, cache)
-        if state_q is not None:
-            cache = S.requantize_state(cache, state_q)
-    else:
-        if cache is not None and "tm_state_codes" in cache:
-            state_q, cache = cache, S.dequantize_state(cache)
-        if cache is None:
-            cache = S.rwkv_state_init(cfg, x.shape[0], x.device)
-        h, cache = S.rwkv_time_mix(p["rwkv"], h, cfg, cache)
-    x = x + h
-    h2 = L.rmsnorm(p["ln2"], x)
+            if cache is not None and "tm_state_codes" in cache:
+                state_q, cache = cache, S.dequantize_state(cache)
+            if cache is None:
+                cache = S.rwkv_state_init(cfg, x.shape[0], x.device)
+            h, cache = S.rwkv_time_mix(p["rwkv"], h, cfg, cache)
+        x = x + h
     if mixer == "rwkv":
-        h2, cache = S.rwkv_channel_mix(p["rwkv"], h2, cfg, cache)
+        h2, cache = S.rwkv_channel_mix(p["rwkv"], L.rmsnorm(p["ln2"], x),
+                                       cfg, cache)
         if state_q is not None:
             cache = S.requantize_state(cache, state_q)
-    elif use_moe:
-        h2, aux = M.moe_apply(p["moe"], h2, cfg)
-    else:
-        h2 = L.ffn(p["ffn"], h2, cfg.ffn_kind)
-    return x + h2, cache, aux
+        return x + h2, cache, aux
+    with host_span("fwd.mlp"):
+        h2 = L.rmsnorm(p["ln2"], x)
+        if use_moe:
+            h2, aux = M.moe_apply(p["moe"], h2, cfg)
+        else:
+            h2 = L.ffn(p["ffn"], h2, cfg.ffn_kind)
+        return x + h2, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +380,9 @@ def lm_apply(p, batch, cfg, last_only: bool = False, mode: str = "prefill",
     if policy is not None:
         raise ValueError("a QAT policy applies to mode='train' only; "
                          "serving packs the weights (zoo.pack_params)")
-    x, positions = _inputs_to_embeds(p, batch, cfg, torch_dtype(cfg.dtype))
+    with host_span("fwd.embed"):
+        x, positions = _inputs_to_embeds(p, batch, cfg,
+                                         torch_dtype(cfg.dtype))
     kv_mask = batch.get("kv_mask")
     cache, meta = _pop_paged_meta(cache)
     layers, apply = _layers_of(p, cfg)
@@ -391,7 +400,8 @@ def lm_apply(p, batch, cfg, last_only: bool = False, mode: str = "prefill",
         out_cache = dict(cache, **meta)       # the pool, written in place
     else:
         out_cache = _stack(new)
-    logits = _readout(p, x)
+    with host_span("fwd.readout"):
+        logits = _readout(p, x)
     if not with_aux:
         return logits, out_cache
     return logits, out_cache, torch.as_tensor(aux, dtype=torch.float32,
@@ -473,12 +483,14 @@ def lm_decode(p, tokens, cfg, cache, pos: int, pad=None):
     head decoded whole by ``ops.dequant``, the kernel on the card)."""
     _check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
-    if cfg.frontend == "audio":
-        w = p["lm_head"]["w"]
-        w = dequant(w, dtype) if isinstance(w, PackedTensor) else w.to(dtype)
-        x = w.T[tokens[..., 0]][:, None]
-    else:
-        x = L.embed(p["embed"], tokens, dtype)
+    with host_span("fwd.embed"):
+        if cfg.frontend == "audio":
+            w = p["lm_head"]["w"]
+            w = dequant(w, dtype) if isinstance(w, PackedTensor) \
+                else w.to(dtype)
+            x = w.T[tokens[..., 0]][:, None]
+        else:
+            x = L.embed(p["embed"], tokens, dtype)
     layers_cache, meta = _pop_paged_meta(cache)
     layers, apply = _layers_of(p, cfg)
     for i in range(_n_layers(layers)):
@@ -487,7 +499,8 @@ def lm_decode(p, tokens, cfg, cache, pos: int, pad=None):
                         mode="decode", pad=pad, meta=meta)
         if c is not None:
             _write_layer(layers_cache, i, c)
-    return _readout(p, x), cache
+    with host_span("fwd.readout"):
+        return _readout(p, x), cache
 
 
 # ---------------------------------------------------------------------------

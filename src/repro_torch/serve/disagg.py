@@ -69,7 +69,7 @@ import torch
 from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..core.policy import PrecisionPolicy
-from ..obs import NULL_RECORDER, MetricRegistry, bind_counters
+from ..obs import NULL_RECORDER, MetricRegistry, bind_counters, recording
 from .engine import (_apply_decode_tokens, _build_decode_loop,
                      _check_stateful_context, _ChunkPrefillMixin,
                      _decode_horizon, _dispatch_decode_loop,
@@ -238,21 +238,23 @@ class PrefillWorker(_ChunkPrefillMixin):
     def step(self, channel: PageHandoffChannel) -> int:
         """One prefill-side step: drain parked completions, admit, run the
         chunk budget, park or retire this step's completions, drain
-        again.  Returns handoffs pushed."""
-        sent = self._drain_ready(channel)
-        for req in self.scheduler.admit():
-            if req.status == RUNNING:
-                # a resumed snapshot (a bounced stateful request): its
-                # state (+ KV) is back, nothing to prefill -- park it for
-                # the handoff straight away
-                self._ready.append(req)
-        for req in self._prefill_phase():
-            if req.done:
-                # budget of 1 / instant EOS: never needs a decode side
-                self.scheduler.retire(req)
-            else:
-                self._ready.append(req)
-        return sent + self._drain_ready(channel)
+        again.  Returns handoffs pushed.  The worker's recorder is the
+        active one (``obs.recording``) for the step."""
+        with recording(self._trace):
+            sent = self._drain_ready(channel)
+            for req in self.scheduler.admit():
+                if req.status == RUNNING:
+                    # a resumed snapshot (a bounced stateful request): its
+                    # state (+ KV) is back, nothing to prefill -- park it
+                    # for the handoff straight away
+                    self._ready.append(req)
+            for req in self._prefill_phase():
+                if req.done:
+                    # budget of 1 / instant EOS: never needs a decode side
+                    self.scheduler.retire(req)
+                else:
+                    self._ready.append(req)
+            return sent + self._drain_ready(channel)
 
 
 class DecodeWorker:
@@ -268,7 +270,6 @@ class DecodeWorker:
 
     _COUNTERS = ("decode_dispatches",   # decode-loop calls
                  "page_table_uploads",  # (B, NP) host->device uploads
-                 "logits_host_bytes",   # stays 0: sampling is fused
                  "token_host_bytes")    # device->host sampled-token sync
 
     def __init__(self, cfg: ModelConfig, params: Any, n_pages: int,
@@ -534,7 +535,7 @@ class DisaggEngine:
         ``last_decode_step_s`` sums (2) and (5) only.  Returns the
         decoded request count."""
         tr = self._trace
-        with tr.span("step"):
+        with recording(tr), tr.span("step"):
             with tr.span("admit"):
                 self.decode.admit_handoffs(self.channel)
             t0 = time.perf_counter()
@@ -579,10 +580,6 @@ class DisaggEngine:
     @property
     def page_table_uploads(self) -> int:
         return self.decode.page_table_uploads
-
-    @property
-    def logits_host_bytes(self) -> int:
-        return self.decode.logits_host_bytes
 
     @property
     def token_host_bytes(self) -> int:

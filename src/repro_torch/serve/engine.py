@@ -45,7 +45,8 @@ from ..core.policy import PrecisionPolicy
 from ..kernels.ops import PackedTensor
 from ..models import ssm, zoo
 from ..models.transformer import attn_key
-from ..obs import NULL_RECORDER, MetricRegistry, bind_counters
+from ..obs import (NULL_RECORDER, MetricRegistry, bind_counters, host_span,
+                   recording)
 from .paged_kv import (PARKING_PAGE, PARKING_SLAB, POOL_KEYS, PagedKVPool,
                        _tree_map, state_slab_bytes)
 from .scheduler import PREFILLING, RUNNING, Scheduler
@@ -247,7 +248,8 @@ def build_prefill_chunk_step(cfg: ModelConfig,
             mode="prefill_chunk", cache=ctx)
         if paged:
             return logits, new_cache
-        return logits, new_cache, zoo.quantize_cache(new_cache, kv_group)
+        with host_span("fwd.kv_write"):
+            return logits, new_cache, zoo.quantize_cache(new_cache, kv_group)
 
     return chunk_step
 
@@ -365,16 +367,17 @@ def _build_decode_loop(cfg: ModelConfig, temperature: float, k_steps: int,
                 def put(buf, new):
                     buf[:, slab_idx] = new
                 _tree_map(put, cache["state"], state)
-            nxt = sample_tokens(logits[:, 0], temperature, seed, rids,
-                                gen_idx).to(torch.int32)
-            nxt = torch.where(done, tokens[:, 0].to(torch.int32), nxt)
-            budget = torch.where(done, budget, budget - 1)
-            new_done = done | (nxt == eos) | (budget <= 0)
-            positions = torch.where(done, positions, positions + 1)
-            gen_idx = torch.where(done, gen_idx, gen_idx + 1)
-            out[:, i] = nxt
-            tokens = nxt[:, None].long()
-            done = new_done
+            with host_span("fwd.sample"):
+                nxt = sample_tokens(logits[:, 0], temperature, seed, rids,
+                                    gen_idx).to(torch.int32)
+                nxt = torch.where(done, tokens[:, 0].to(torch.int32), nxt)
+                budget = torch.where(done, budget, budget - 1)
+                new_done = done | (nxt == eos) | (budget <= 0)
+                positions = torch.where(done, positions, positions + 1)
+                gen_idx = torch.where(done, gen_idx, gen_idx + 1)
+                out[:, i] = nxt
+                tokens = nxt[:, None].long()
+                done = new_done
         return out
 
     return loop
@@ -412,7 +415,8 @@ class _PageTableCache:
                 page_table[row, :len(req.pages)] = req.pages
                 if req.slab is not None:
                     page_table[row, -1] = req.slab
-            both = torch.from_numpy(page_table).to(device)
+            with host_span("sync.page_table"):
+                both = torch.from_numpy(page_table).to(device)
             self.dev, self.slab_dev = both[:, :-1], both[:, -1]
             self.epoch = epoch
             self.rows = rows
@@ -427,24 +431,28 @@ def _dispatch_decode_loop(loop, params, pool, running, b: int,
     batch: build the (B,) host operands, stage them on the device in ONE
     copy, fetch the epoch-cached page and slab tables, then run the loop
     (under the sync guard when ``guard``).  Returns the in-flight
-    dispatch record; its (B, K) token buffer is still on the device."""
-    ops = np.zeros((7, b), np.int32)
-    tokens, positions, done, budget, eos, rids, gen_idx = ops
-    done[:] = 1                          # padding rows stay dead
-    eos[:] = -1                          # -1: matches no vocab id
-    for row, req in enumerate(running):
-        tokens[row] = req.next_token
-        positions[row] = req.position
-        done[row] = 0
-        budget[row] = req.max_new_tokens - len(req.generated)
-        if req.eos_id is not None:
-            eos[row] = req.eos_id
-        rids[row] = req.rid
-        gen_idx[row] = len(req.generated)
-    dev = torch.from_numpy(ops).to(pool.device)
-    dev_table, slab_table, uploaded = pt_cache.get(
-        running, epoch, b, n_pages_per_req, pool.device)
-    with _sync_guard(guard):
+    dispatch record; its (B, K) token buffer is still on the device.
+    Spans: ``decode.stage`` (the operands, their upload and the page
+    table) and ``decode.forward`` (the loop's enqueue)."""
+    with host_span("decode.stage"):
+        ops = np.zeros((7, b), np.int32)
+        tokens, positions, done, budget, eos, rids, gen_idx = ops
+        done[:] = 1                      # padding rows stay dead
+        eos[:] = -1                      # -1: matches no vocab id
+        for row, req in enumerate(running):
+            tokens[row] = req.next_token
+            positions[row] = req.position
+            done[row] = 0
+            budget[row] = req.max_new_tokens - len(req.generated)
+            if req.eos_id is not None:
+                eos[row] = req.eos_id
+            rids[row] = req.rid
+            gen_idx[row] = len(req.generated)
+        with host_span("sync.decode_operands"):
+            dev = torch.from_numpy(ops).to(pool.device)
+        dev_table, slab_table, uploaded = pt_cache.get(
+            running, epoch, b, n_pages_per_req, pool.device)
+    with host_span("decode.forward"), _sync_guard(guard):
         toks_dev = loop(params, dev[0][:, None].long(), dev[1],
                         pool.device_state(), dev_table, slab_table,
                         dev[2].bool(), dev[3], dev[4], dev[5], dev[6])
@@ -517,8 +525,10 @@ class _ChunkPrefillMixin:
         rid = torch.full((1,), req.rid, dtype=torch.int32, device=lg.device)
         idx = torch.full((1,), len(req.generated), dtype=torch.int32,
                          device=lg.device)
-        return int(sample_tokens(lg[None], self.temperature, self.seed, rid,
-                                 idx)[0])
+        tok = sample_tokens(lg[None], self.temperature, self.seed, rid,
+                            idx)[0]
+        with host_span("sync.first_token"):
+            return int(tok)
 
     def _prefill_chunk(self, req) -> int:
         """Run at most ONE prefill chunk for ``req``: allocate the pages its
@@ -548,39 +558,51 @@ class _ChunkPrefillMixin:
         real = min(c, ln - start)
         if not sched.ensure_prefill_capacity(req, start + real):
             return 0                     # self-preempted: pool too dry
-        toks = np.zeros((1, c), np.int64)
-        toks[0, :real] = prefix[start:start + real]
-        toks = torch.from_numpy(toks).to(self.device)
-        start_t = torch.full((1,), start, dtype=torch.int32,
-                             device=self.device)
-        if self.prefill_context == "pages":
-            pt = np.zeros((1, self.max_pages_per_req), np.int32)
-            pt[0, :len(req.pages)] = req.pages
-            cache = self.pool.device_state()
-            cache["page_table"] = torch.from_numpy(pt).to(self.device)
-            logits, _ = self._chunk_step_paged(self.params, toks, cache,
-                                               start_t)
-        else:
-            ctx = self._prefill_ctx.get(req.rid)
-            if start == 0 or ctx is None:
-                ctx = self._empty_ctx()
-            logits, kv, chunk_q = self._chunk_step(self.params, toks, ctx,
+        paged = self.prefill_context == "pages"
+        with host_span("prefill.stage"):
+            toks = np.zeros((1, c), np.int64)
+            toks[0, :real] = prefix[start:start + real]
+            with host_span("sync.chunk_operands"):
+                toks = torch.from_numpy(toks).to(self.device)
+            start_t = torch.full((1,), start, dtype=torch.int32,
+                                 device=self.device)
+            if paged:
+                pt = np.zeros((1, self.max_pages_per_req), np.int32)
+                pt[0, :len(req.pages)] = req.pages
+                cache = self.pool.device_state()
+                with host_span("sync.chunk_operands"):
+                    cache["page_table"] = torch.from_numpy(pt).to(
+                        self.device)
+            else:
+                cache = self._prefill_ctx.get(req.rid)
+                if start == 0 or cache is None:
+                    cache = self._empty_ctx()
+        with host_span("prefill.forward"):
+            if paged:
+                logits, _ = self._chunk_step_paged(self.params, toks, cache,
                                                    start_t)
-            if self.pool.has_kv:
-                self.pool.write_chunk(
-                    chunk_q[attn_key(self.cfg)] if stateful else chunk_q,
-                    req.pages, start)
-            if start + real < ln:        # full chunk: extend the carry
-                self._prefill_ctx[req.rid] = self._grow_ctx(ctx, kv, start,
-                                                            ln)
-            elif stateful:
-                # prefill completion writes the carried state into the
-                # request's slab ONCE, quantized as the static engine
-                # quantizes its cache after prefill
-                state = kv if not self.pool.has_kv else {
-                    k: v for k, v in kv.items() if k != attn_key(self.cfg)}
-                self.pool.write_state(
-                    ssm.quantize_state(state, self.pool.kv_group), req.slab)
+            else:
+                logits, kv, chunk_q = self._chunk_step(self.params, toks,
+                                                       cache, start_t)
+        if not paged:
+            with host_span("prefill.write"):
+                if self.pool.has_kv:
+                    self.pool.write_chunk(
+                        chunk_q[attn_key(self.cfg)] if stateful else chunk_q,
+                        req.pages, start)
+                if start + real < ln:    # full chunk: extend the carry
+                    self._prefill_ctx[req.rid] = self._grow_ctx(
+                        cache, kv, start, ln)
+                elif stateful:
+                    # prefill completion writes the carried state into the
+                    # request's slab ONCE, quantized as the static engine
+                    # quantizes its cache after prefill
+                    state = kv if not self.pool.has_kv else {
+                        k: v for k, v in kv.items()
+                        if k != attn_key(self.cfg)}
+                    self.pool.write_state(
+                        ssm.quantize_state(state, self.pool.kv_group),
+                        req.slab)
         req.prefilled = start + real
         self.prefill_tokens_computed += real
         self._trace.event("PREFILL_CHUNK", rid=req.rid, start=start,
@@ -674,7 +696,6 @@ class ContinuousEngine(_ChunkPrefillMixin):
         "prefill_tokens_computed",  # real tokens forwarded
         "decode_dispatches",        # decode-loop calls
         "page_table_uploads",       # (B, NP) host->device uploads
-        "logits_host_bytes",        # device->host logits (stays 0)
         "token_host_bytes",         # device->host sampled-token sync
     )
 
@@ -778,10 +799,12 @@ class ContinuousEngine(_ChunkPrefillMixin):
         """One engine step: capacity for the running batch FIRST, then
         admission, chunked prefill within the token budget, ONE K-step
         decode dispatch for everyone running, retirement.  Returns the
-        decoded request count."""
+        decoded request count.  The engine's recorder is the active one
+        (``obs.recording``) for the step, so the forward's spans land
+        there."""
         sched = self.scheduler
         tr = self._trace
-        with tr.span("step"):
+        with recording(tr), tr.span("step"):
             with tr.span("capacity"):
                 for req in list(sched.running):
                     if req.status == RUNNING:  # a victim may drop mid-loop

@@ -184,7 +184,6 @@ def test_disagg_matches_continuous_and_static(params, k_steps):
     assert eng.prefill.pool.used_pages == 0
     assert eng.decode.pool.used_pages == 0
     assert eng.page_table_uploads < eng.decode_dispatches
-    assert eng.logits_host_bytes == 0
     assert eng.last_decode_step_s > 0
 
 
