@@ -64,6 +64,11 @@ and, for continuous batching over the paged posit8 KV pool:
       256-token prefill chunks against the plain versions, bitwise paged
       == contiguous decode at page == blk and C=1 prefill == decode, Dh
       320 and 512 timed beside SDPA;
+  2d. ``paged_kv_write`` (the paged posit8 KV write) at
+      deepseek-67b.chat's heads (Kh 8, Dh 128, bf16 rows, pages of 128):
+      a decode batch of 128 and a 256-token chunk bitwise the plain
+      version in one launch each, timed (cold L2) beside the plain chain
+      and the bytes bound, with the wrapper's host time a call;
   3b. ``ContinuousEngine`` serving full-width qwen2-0.5b (paper_mixed
       weights, 20 pages of 128 slots, prefix cache, 256-token chunks) a
       16-request mix with a shared preamble and staggered arrivals, at
@@ -257,6 +262,7 @@ DEQUANT_SRC = "src/repro_torch/csrc/dequant.cu"
 DEQUANT_TPU = "src/repro/kernels/codec.py:45"
 QUIRE_SRC = "src/repro_torch/csrc/quire_dot.cu"
 QUIRE_TPU = "src/repro/kernels/quire_dot.py:65"
+KV_WRITE_SRC = "src/repro_torch/csrc/kv_write.cu"   # replaces no TPU kernel
 
 
 def log(msg: str) -> None:
@@ -779,7 +785,8 @@ def phase_flash(summary, fails) -> None:
     from repro_torch.kernels.flash_decode import (default_kv_block,
                                                   flash_decode,
                                                   flash_decode_plain)
-    from repro_torch.models.attention import dequantize_kv, quantize_kv
+    from repro_torch.kernels.ref import quantize_kv
+    from repro_torch.models.attention import dequantize_kv
     gen = torch.Generator("cuda").manual_seed(2)
     b, kh, g, dh, t = 8, 2, 7, 64, 256
     max_err = 0.0
@@ -1193,7 +1200,7 @@ def phase_parity(summary, fails) -> None:
 # ---------------------------------------------------------------------------
 
 def _paged_pool(gen, n_pages, page, kh, dh, group):
-    from repro_torch.models.attention import quantize_kv
+    from repro_torch.kernels.ref import quantize_kv
     kv = torch.randn((2, n_pages, page, kh, dh), generator=gen, device="cuda")
     return (*quantize_kv(kv[0], group), *quantize_kv(kv[1], group))
 
@@ -1224,7 +1231,7 @@ def phase_paged(summary, fails) -> None:
         _decode_cuda, flash_decode, paged_flash_decode,
         paged_flash_decode_plain, paged_flash_prefill,
         paged_flash_prefill_plain)
-    from repro_torch.models.attention import quantize_kv
+    from repro_torch.kernels.ref import quantize_kv
     gen = torch.Generator("cuda").manual_seed(4)
     b, kh, g, dh, page, npp = 8, 2, 7, 64, 128, 8
     n_pages = b * npp                        # + the parking page 0
@@ -1447,7 +1454,7 @@ def phase_wide(summary, fails, gen, rng) -> None:
         flash_decode, flash_decode_plain, paged_flash_decode,
         paged_flash_decode_plain, paged_flash_prefill,
         paged_flash_prefill_plain, wide_route)
-    from repro_torch.models.attention import quantize_kv
+    from repro_torch.kernels.ref import quantize_kv
     b, kh, g = 4, 2, 7
     err = 0.0
     wide_route.launches = 0
@@ -1655,11 +1662,13 @@ def _launch_counters():
     from repro_torch.kernels.codec import dequant
     from repro_torch.kernels.flash_decode import (
         flash_decode, paged_flash_decode, paged_flash_prefill)
+    from repro_torch.kernels.kv_write import paged_kv_write
     from repro_torch.kernels.quire_dot import quire_dot
     from repro_torch.kernels.rmmec_matmul import rmmec_matmul
     return {"rmmec_matmul": rmmec_matmul, "flash_decode": flash_decode,
             "paged_flash_decode": paged_flash_decode,
             "paged_flash_prefill": paged_flash_prefill,
+            "paged_kv_write": paged_kv_write,
             "dequant": dequant, "quire_dot": quire_dot}
 
 
@@ -1667,7 +1676,8 @@ def _continuous_run(tag, smi, cfg, params, kw, reqs, k, fails):
     """One ``ContinuousEngine`` run of ``reqs`` (``_serve_continuous``'s
     arrivals) on 20 pages at K=``k`` under the sync guard.  Checks the
     launch counts exactly (7 RMMEC a layer a forward, one paged decode /
-    prefill a layer an iteration / chunk), every output's length and
+    prefill a layer an iteration / chunk, one KV write a layer for each
+    of them), every output's length and
     range, and that only the cached prefix pages stay in use after
     draining.  Returns ({request index: tokens}, stats, launches)."""
     from repro_torch.obs import TraceRecorder
@@ -1701,6 +1711,7 @@ def _continuous_run(tag, smi, cfg, params, kw, reqs, k, fails):
     _check_launches(f"{tag} K={k}", launches, {
         "paged_flash_decode": n_layers * iters,
         "paged_flash_prefill": n_layers * chunks,
+        "paged_kv_write": n_layers * (iters + chunks),
         "rmmec_matmul": 7 * n_layers * (iters + chunks),
         "flash_decode": 0, "dequant": 0, "quire_dot": 0}, fails)
     if eng.pool.used_pages != len(sched.prefix.cached_pages):
@@ -1862,6 +1873,7 @@ def phase_disagg(summary, fails, cfg, params, kw, reqs, want, cont) -> None:
             f"per decode iteration at K={k} (interleaved)")
         expect = {"paged_flash_decode": n_layers * iters,
                   "paged_flash_prefill": n_layers * chunks,
+                  "paged_kv_write": n_layers * (iters + chunks),
                   "rmmec_matmul": 7 * n_layers * (iters + chunks),
                   "flash_decode": 0, "dequant": 0, "quire_dot": 0}
         log(f"[disagg] {tag} launches {launches}, expected {expect}")
@@ -1911,6 +1923,7 @@ def _continuous_page_256(cfg, params, kw, reqs, want, want_stats, counters,
     n_layers = cfg.n_layers
     expect = {"paged_flash_decode": n_layers * iters,
               "paged_flash_prefill": n_layers * chunks,
+              "paged_kv_write": n_layers * (iters + chunks),
               "rmmec_matmul": 7 * n_layers * (iters + chunks),
               "flash_decode": 0, "dequant": 0, "quire_dot": 0}
     log(f"[cont] page 256, K=1: wall {wall:.2f} s, {iters} iterations, "
@@ -2480,6 +2493,97 @@ def phase_continuous_parity(fails) -> None:
         f"{paged_flash_decode.launches}: {'ok' if ok else 'MISS'}")
     if not ok:
         fails.append(f"continuous CLI at page 256: {text[-400:]!r}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2d: the paged posit8 KV write
+# ---------------------------------------------------------------------------
+
+KV_WRITE_CASES = (   # (tag, requests, tokens a request, start or None)
+    ("decode", 128, 1, None),      # deepseek-67b.chat's decode batch
+    ("chunk", 1, 256, 512),        # one 256-token chunk at block 4
+)
+
+
+def _kv_write_operands(tag, b, c, start, dh=128, kh=8, gs=1, page=128):
+    """A pool of 1369 pages (deepseek-67b.chat's) and one write's rows
+    (bf16) at the cell's heads: decode rows at random slots of distinct
+    pages, or a chunk from ``start``."""
+    gen = torch.Generator("cuda").manual_seed(21)
+    n_pages = 1370
+    pool = {}
+    for name in ("k", "v"):
+        pool[f"{name}_codes"] = torch.randint(
+            0, 256, (n_pages, page, kh, dh), generator=gen, device="cuda",
+            dtype=torch.uint8)
+        pool[f"{name}_scale"] = torch.ones((n_pages, page, kh, gs),
+                                           dtype=torch.bfloat16, device="cuda")
+    shape = (b, kh, dh) if start is None else (b, c, kh, dh)
+    k = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    cols = 8            # 1024 of the 1369 pages for the decode batch
+    table = (torch.randperm(n_pages - 1, generator=gen, device="cuda")[
+        :b * cols] + 1).to(torch.int32).reshape(b, cols)
+    if start is None:
+        where = torch.randint(0, cols * page, (b,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+    else:
+        where = torch.full((b,), start, dtype=torch.int32, device="cuda")
+    return pool, k, v, table, where
+
+
+def phase_kv_write(summary, fails) -> None:
+    """``paged_kv_write`` at the cell's shapes: bitwise the plain version,
+    its device time (cold L2) beside the plain chain's and the bytes
+    bound, and the wrapper's host time a call (enqueue, no sync)."""
+    from repro_torch.kernels.kv_write import (paged_kv_write,
+                                              paged_kv_write_plain)
+    out = {}
+    for tag, b, c, start in KV_WRITE_CASES:
+        pool, k, v, table, where = _kv_write_operands(tag, b, c, start)
+        kw = (dict(positions=where) if start is None else dict(start=where))
+        want = {key: t.clone() for key, t in pool.items()}
+        paged_kv_write_plain(want, k, v, table, **kw)
+        launches = paged_kv_write.launches
+        paged_kv_write(pool, k, v, table, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(pool[key].view(torch.uint8),
+                               want[key].view(torch.uint8)) for key in pool)
+        ok = same and paged_kv_write.launches == launches + 1
+        ms = time_ms(lambda: paged_kv_write(pool, k, v, table, **kw))
+        plain = time_ms(lambda: paged_kv_write_plain(pool, k, v, table,
+                                                     **kw), iters=10)
+        rows = b * c * 8
+        nbytes = 2 * k.numel() * 2 + table.numel() * 4 + b * 4 \
+            + 2 * rows * (128 + 2)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * k.numel(), PEAK_FLOPS["f32"])
+        # host time a call: the wrapper's Python and the launch, the
+        # stream kept busy so no call waits for the card
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES * 10)
+        n = 200
+        t0 = time.perf_counter()
+        for _ in range(n):
+            paged_kv_write(pool, k, v, table, **kw)
+        host_us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        log(f"[kv_write] {tag} B={b} C={c} Kh=8 Dh=128 Gs=1 bf16: bitwise "
+            f"plain {same}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}, {nbytes} B), host "
+            f"{host_us:.1f} us a call {'ok' if ok else 'MISS'}")
+        if not ok:
+            fails.append(f"kv_write {tag}")
+        out[tag] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                        host_us=host_us)
+    d = out["decode"]
+    # the kernels line's launches are phase 3b's (launches_continuous)
+    summary["paged_kv_write"] = dict(
+        max_abs_err=0.0, ms=d["ms"],
+        plain_ms=d["plain_ms"], library_ms=None, bound_ms=d["bound_ms"],
+        bound_by=d["bound_by"], host_us=d["host_us"],
+        ms_chunk=out["chunk"]["ms"], plain_ms_chunk=out["chunk"]["plain_ms"],
+        bound_ms_chunk=out["chunk"]["bound_ms"],
+        host_us_chunk=out["chunk"]["host_us"])
 
 
 # ---------------------------------------------------------------------------
@@ -3111,7 +3215,8 @@ def phase_new_heads(summary, fails) -> None:
                                                   flash_decode,
                                                   flash_decode_plain)
     from repro_torch.kernels.ops import pack_tensor
-    from repro_torch.models.attention import dequantize_kv, quantize_kv
+    from repro_torch.kernels.ref import quantize_kv
+    from repro_torch.models.attention import dequantize_kv
     gen = torch.Generator("cuda").manual_seed(10)
     s = summary["flash_decode"]
     for name, short, kh, g, dh, b, t, last in NEW_HEADS:
@@ -3821,6 +3926,7 @@ def main() -> int:
     phase_rmmec(summary, fails)
     phase_flash(summary, fails)
     phase_paged(summary, fails)
+    phase_kv_write(summary, fails)
     phase_engine_kernels(summary, fails)
     log(f"[time] kernel checks {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3902,7 +4008,8 @@ def main() -> int:
             ("paged_flash_prefill", FLASH_SRC, PAGED_PREFILL_TPU),
             ("dequant", DEQUANT_SRC, DEQUANT_TPU),
             ("quire_dot", QUIRE_SRC, QUIRE_TPU),
-            ("attention_wide", FLASH_SRC, PAGED_DECODE_TPU)):
+            ("attention_wide", FLASH_SRC, PAGED_DECODE_TPU),
+            ("paged_kv_write", KV_WRITE_SRC, None)):
         s = summary[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu,
@@ -3930,6 +4037,9 @@ def main() -> int:
         elif name in ("dequant", "quire_dot"):   # the second timed shape
             kernels[-1].update({key: v for key, v in s.items()
                                 if key.startswith(("ms_", "bound_ms_"))})
+        elif name == "paged_kv_write":   # the chunk beside decode, host us
+            kernels[-1].update({key: v for key, v in s.items()
+                                if key not in kernels[-1]})
         elif name == "rmmec_stream":   # the streaming route: every read-out
             kernels[-1].update({key: v for key, v in s.items()
                                 if key not in kernels[-1]})

@@ -116,7 +116,7 @@ def _time_ms(fn, iters: int = 20) -> float:
 
 
 def _inputs():
-    from ..models.attention import quantize_kv
+    from ..kernels.ref import quantize_kv
     gen = torch.Generator("cuda").manual_seed(4)
     b, kh, g, dh, page, npp = 8, 2, 7, 64, 128, 8
     kv = torch.randn((2, b * npp + 1, page, kh, dh), generator=gen,

@@ -34,6 +34,7 @@ from .. import resolve_device
 from ..core.policy import PrecisionPolicy
 from ..kernels.flash_decode import (default_kv_block, flash_decode,
                                     flash_decode_plain)
+from ..kernels.ref import quantize_kv
 from ..models import attention as A
 from ..models import zoo
 from ..roofline.analysis import decode_kv_bytes
@@ -68,8 +69,8 @@ def _kernel_vs_plain(cfg, max_len, pos, device):
                         device=device)
     kv = torch.as_tensor(rng.normal(size=(2, b, max_len, kh, dh)).astype(
         np.float32), device=device)
-    kc, ks = A.quantize_kv(kv[0])
-    vc, vs = A.quantize_kv(kv[1])
+    kc, ks = quantize_kv(kv[0])
+    vc, vs = quantize_kv(kv[1])
     us_k = time_call(flash_decode, q, kc, ks, vc, vs, pos)
     us_p = time_call(flash_decode_plain, q, kc, ks, vc, vs, pos)
     err = (flash_decode(q, kc, ks, vc, vs, pos)

@@ -1,6 +1,7 @@
 // Branch-free decoders of the XR-NPE number formats, for use inside
 // kernels: the device twins of repro_torch/core/formats.py
-// (decode_posit_bits, decode_minifloat_bits and the fixed-point decode).
+// (decode_posit_bits, decode_minifloat_bits and the fixed-point decode),
+// and the posit encoder (encode_posit_bits).
 // Each format is a type with a compile-time bit width, so a kernel
 // templated on it unpacks and decodes in registers with no table.
 // NaR and NaN codes decode to 0, as on the Python side.
@@ -41,6 +42,38 @@ struct Posit {
     const float val = (1.0f + static_cast<float>(frac) * pow2i(-fbits)) *
                       pow2i(k * (1 << ES) + e);
     return neg ? -val : val;
+  }
+
+  // Branch-free encode with exact round-to-nearest-even, the twin of
+  // encode_posit_bits: regime | exponent | the top 13 mantissa bits in
+  // one int, rounded once at the final width with a guard bit and a
+  // sticky bit (the 10 mantissa bits below count as sticky).  Saturates
+  // to +-maxpos (also +-Inf); a nonzero value never rounds to zero
+  // (+-minpos); zero, -0 and float32 subnormals encode as 0; NaN as NaR.
+  __device__ __forceinline__ static uint32_t encode(float x) {
+    constexpr int B = N - 1;
+    constexpr int MAXSCALE = (N - 2) << ES;
+    const uint32_t bits = __float_as_uint(x);
+    const uint32_t mag = bits & 0x7fffffffu;
+    if (mag > 0x7f800000u) return 1u << B;   // NaN -> NaR
+    if (mag < 0x00800000u) return 0u;        // zero and subnormals
+    const int raw = static_cast<int>(mag >> 23) - 127;   // Inf: above MAXSCALE
+    const int m23 = static_cast<int>(mag & 0x7fffffu);
+    const int scale = min(max(raw, -MAXSCALE), MAXSCALE);
+    const int k = scale >> ES;
+    const int e = scale - (k << ES);
+    const int r = k >= 0 ? k + 2 : 1 - k;
+    const int pattern = k >= 0 ? ((1 << (k + 1)) - 1) << 1 : 1;
+    const int v = (pattern << (ES + 13)) | (e << 13) | (m23 >> 10);
+    const int drop = r + ES + 13 - B;
+    const int keep = v >> drop;
+    const int guard = (v >> (drop - 1)) & 1;
+    const int sticky = ((v & ((1 << (drop - 1)) - 1)) != 0) | ((m23 & 1023) != 0);
+    int body = min(max(keep + (guard & (sticky | (keep & 1))), 1), (1 << B) - 1);
+    if (raw < -MAXSCALE) body = 1;
+    if (raw > MAXSCALE) body = (1 << B) - 1;
+    const uint32_t u = static_cast<uint32_t>(body);
+    return (bits >> 31) ? ((1u << N) - u) & ((1u << N) - 1u) : u;
   }
 };
 

@@ -27,7 +27,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_PKG_DIR)),
                          "build", "repro_torch_kernels")
-SOURCES = ("rmmec_matmul", "flash_decode", "dequant", "quire_dot")
+SOURCES = ("rmmec_matmul", "flash_decode", "dequant", "quire_dot", "kv_write")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

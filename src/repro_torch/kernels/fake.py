@@ -19,7 +19,7 @@ from typing import Iterable, Optional
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
-__all__ = ["is_fake", "recording", "kernel_call", "nbytes"]
+__all__ = ["is_fake", "recording", "kernel_call", "kernel_write", "nbytes"]
 
 # recorders entered by ``recording``: each has ``kernel(name, flops,
 # nbytes)``; a list, so nested recorders all see the call
@@ -51,6 +51,13 @@ def kernel_call(name: str, shape, dtype: torch.dtype, like: torch.Tensor,
     ``read_bytes``; each recorder gets one op with the written bytes
     added."""
     out = torch.empty(shape, dtype=dtype, device=like.device)
-    for r in _RECORDERS:
-        r.kernel(name, float(flops), int(read_bytes) + nbytes([out]))
+    kernel_write(name, flops, int(read_bytes) + nbytes([out]))
     return out
+
+
+def kernel_write(name: str, flops: float, moved: int) -> None:
+    """One launch of kernel ``name`` that returns nothing (it writes its
+    operands in place), doing ``flops`` and moving ``moved`` bytes (read
+    and written); each recorder gets one op."""
+    for r in _RECORDERS:
+        r.kernel(name, float(flops), int(moved))

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -20,7 +21,8 @@ from ..core.formats import FormatSpec
 from ..core.packing import unpack
 
 __all__ = ["no_tf32", "dequant_ref", "rmmec_matmul_ref", "quire_dot_ref",
-           "scale_cols", "dequant_kv_ref",
+           "scale_cols", "kv_scale_cols", "quantize_kv", "quantize_kv_many",
+           "dequant_kv_ref",
            "flash_decode_ref", "paged_flash_decode_ref", "paged_prefill_ref"]
 
 
@@ -80,6 +82,44 @@ def scale_cols(scale: torch.Tensor, dh: int) -> torch.Tensor:
     scale repeats over its Dh / Gs columns (an expand, so no host sync)."""
     *lead, gs = scale.shape
     return scale[..., None].expand(*lead, gs, dh // gs).reshape(*lead, dh)
+
+
+def kv_scale_cols(head_dim: int, group_size: Optional[int]) -> int:
+    """Scale columns per (token, head): Dh/group, or 1 when the group is
+    None, does not divide Dh, or is >= Dh."""
+    if not group_size or group_size >= head_dim or head_dim % group_size:
+        return 1
+    return head_dim // group_size
+
+
+def quantize_kv(k: torch.Tensor, group_size: Optional[int] = None):
+    """Posit8 codes (..., Dh) uint8 and po2 scales (..., Gs) bf16 of a KV
+    tensor, through the weight plane's ``group_scales`` grid (the plain
+    version of ``kernels.kv_write``'s quantization)."""
+    return quantize_kv_many([k], [group_size])[0]
+
+
+def quantize_kv_many(tensors, groups):
+    """``quantize_kv`` of several tensors (each with its own group), the
+    elementwise encode run once over all of them: the same bytes as one
+    call per tensor, in a third of the launches for a three-leaf state."""
+    scales, scaled = [], []
+    for k, group_size in zip(tensors, groups):
+        dh = k.shape[-1]
+        gs = kv_scale_cols(dh, group_size)
+        g = None if gs == 1 else group_size
+        s = quant.group_scales(fmt.POSIT8, k[..., None].float(), g,
+                               method="absmax_po2")[..., 0]
+        scales.append(s)
+        scaled.append((k.float() / scale_cols(s, dh)).reshape(-1))
+    flat = scaled[0] if len(scaled) == 1 else torch.cat(scaled)
+    codes = codec_mod.encode(fmt.POSIT8, flat).to(torch.uint8)
+    out, at = [], 0
+    for k, s in zip(tensors, scales):
+        n = k.numel()
+        out.append((codes[at:at + n].reshape(k.shape), s.to(torch.bfloat16)))
+        at += n
+    return out
 
 
 def dequant_kv_ref(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

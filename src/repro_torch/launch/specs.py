@@ -111,7 +111,7 @@ def handoff_specs(cfg: ModelConfig, n_pages: int, page_size: int,
     ``(La, n, page, Kh, Gs)`` bf16, ``La`` the attention layers only.
     Their summed bytes are exactly ``n_pages *
     paged_kv.page_handoff_bytes(cfg, page_size, kv_group)``."""
-    from ..models.attention import kv_scale_cols
+    from ..kernels.ref import kv_scale_cols
     from ..serve.paged_kv import PagedKVPool
     PagedKVPool.page_kinds(cfg)
     hd = cfg.resolved_head_dim

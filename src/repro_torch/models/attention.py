@@ -12,7 +12,9 @@ blocked loops on a CPU cache: ``flash_decode`` for a contiguous cache,
 ``paged_flash_decode`` / ``paged_flash_prefill`` for the paged pool of
 continuous serving.  Decode and paged chunk prefill write the new
 tokens' codes into the cache or pool in place (the reference returns an
-updated copy); the caller owns the cache.
+updated copy); the caller owns the cache.  The paged pool's write is
+``kernels.kv_write.paged_kv_write``: one CUDA launch for K and V on the
+card, ``quantize_kv`` and index writes on the CPU.
 
 The serving sub-blocks (``attn_decode``, ``attn_prefill_chunk``) take
 the residual stream with the block's pre-norm and return the stream
@@ -28,20 +30,16 @@ from typing import Optional
 
 import torch
 
-from ..core import codec as codec_mod
-from ..core import formats as fmt
-from ..core import quant
 from ..kernels.flash_decode import (flash_decode, flash_decode_plain,
                                     paged_flash_decode,
                                     paged_flash_prefill)
-from ..kernels.ref import dequant_kv_ref, scale_cols
+from ..kernels.kv_write import paged_kv_write
+from ..kernels.ref import dequant_kv_ref, quantize_kv
 from ..obs import host_span
 from . import layers as L
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "attn_prefill_chunk",
-           "quantize_kv", "quantize_kv_many", "dequantize_kv",
-           "kv_scale_cols",
-           "decode_quantized_blocks"]
+           "dequantize_kv", "decode_quantized_blocks"]
 
 _NEG = -1e30
 
@@ -147,43 +145,6 @@ def attn_apply(p, x, cfg, positions=None, kv_mask=None):
 # KV cache
 # ---------------------------------------------------------------------------
 
-def kv_scale_cols(head_dim: int, group_size: Optional[int]) -> int:
-    """Scale columns per (token, head): Dh/group, or 1 when the group is
-    None, does not divide Dh, or is >= Dh."""
-    if not group_size or group_size >= head_dim or head_dim % group_size:
-        return 1
-    return head_dim // group_size
-
-
-def quantize_kv(k: torch.Tensor, group_size: Optional[int] = None):
-    """Posit8 codes (..., Dh) uint8 and po2 scales (..., Gs) bf16 of a KV
-    tensor, through the weight plane's ``group_scales`` grid."""
-    return quantize_kv_many([k], [group_size])[0]
-
-
-def quantize_kv_many(tensors, groups):
-    """``quantize_kv`` of several tensors (each with its own group), the
-    elementwise encode run once over all of them: the same bytes as one
-    call per tensor, in a third of the launches for a three-leaf state."""
-    scales, scaled = [], []
-    for k, group_size in zip(tensors, groups):
-        dh = k.shape[-1]
-        gs = kv_scale_cols(dh, group_size)
-        g = None if gs == 1 else group_size
-        s = quant.group_scales(fmt.POSIT8, k[..., None].float(), g,
-                               method="absmax_po2")[..., 0]
-        scales.append(s)
-        scaled.append((k.float() / scale_cols(s, dh)).reshape(-1))
-    flat = scaled[0] if len(scaled) == 1 else torch.cat(scaled)
-    codes = codec_mod.encode(fmt.POSIT8, flat).to(torch.uint8)
-    out, at = [], 0
-    for k, s in zip(tensors, scales):
-        n = k.numel()
-        out.append((codes[at:at + n].reshape(k.shape), s.to(torch.bfloat16)))
-        at += n
-    return out
-
-
 def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor,
                   dtype=torch.bfloat16) -> torch.Tensor:
     """codes (..., Dh) + scales (..., Gs) -> (..., Dh) in ``dtype``."""
@@ -219,14 +180,13 @@ def decode_quantized_blocks(q4, layer_cache, pos: int, softcap: float = 0.0,
                               layer_cache["v_scale"], pos, pad, softcap, blk)
 
 
-def _pool_write(pool, k, v, index) -> None:
-    """Quantize k/v (N, ..., Kh, Dh) and write their codes and scales into
-    the pool leaves at ``pool[key][index]``, in place."""
-    group = _cache_group(pool)
-    for name, new in (("k", k), ("v", v)):
-        codes, scale = quantize_kv(new, group)
-        pool[f"{name}_codes"][index] = codes
-        pool[f"{name}_scale"][index] = scale
+def _pool_write(pool, k, v, page_table, positions=None, start=None) -> None:
+    """Quantize k/v and write their codes and scales into the pool leaves
+    through ``page_table``, in place: a decode step's (B, Kh, Dh) rows at
+    ``positions`` or a chunk's (B, C, Kh, Dh) rows from ``start``
+    (``kernels.kv_write.paged_kv_write``).  The one name both paged
+    paths write through: ``bench/tests`` patch it to plant a lost write."""
+    paged_kv_write(pool, k, v, page_table, positions=positions, start=start)
 
 
 def attn_prefill_chunk(p, ln1, x, cfg, positions, ctx):
@@ -279,24 +239,11 @@ def _attn_prefill_paged(p, ln1, x, cfg, positions, ctx):
         h = L.rmsnorm(ln1, x)
         q, k, v = _qkv(p, h, cfg, positions)
     with host_span("fwd.kv_write"):
-        psize = ctx["k_codes"].shape[1]
-        if c % psize:
-            raise ValueError(f"chunk of {c} tokens is not whole pages of "
-                             f"{psize}")
         page_table = ctx["page_table"]
         start = positions[:, 0].to(torch.int32).contiguous()
-        nblk = c // psize
-        npp = page_table.shape[1]
-        blk_ids = start[:, None].long() // psize \
-            + torch.arange(nblk, device=x.device)[None]
-        # pad blocks of a final chunk past the table go to the parking page
-        pgs = torch.where(blk_ids < npp,
-                          page_table.gather(1, blk_ids.clamp(max=npp - 1)),
-                          0).reshape(-1).long()
-        kh, hd = cfg.n_kv_heads, q.shape[-1]
-        _pool_write(ctx, k.reshape(b * nblk, psize, kh, hd),
-                    v.reshape(b * nblk, psize, kh, hd), pgs)
+        _pool_write(ctx, k, v, page_table, start=start)
     with host_span("fwd.attn"):
+        kh, hd = cfg.n_kv_heads, q.shape[-1]
         q5 = q.reshape(b, c, kh, cfg.n_heads // kh, hd)
         out5 = paged_flash_prefill(q5, ctx["k_codes"], ctx["k_scale"],
                                    ctx["v_codes"], ctx["v_scale"],
@@ -326,10 +273,8 @@ def _attn_decode_paged(p, ln1, x, cfg, layer_cache):
             pos2 = pos2.expand(3, b, 1)
         q, k_new, v_new = _qkv(p, h, cfg, pos2)
     with host_span("fwd.kv_write"):
-        psize = layer_cache["k_codes"].shape[1]
-        pos = positions.long()
-        pg = page_table.gather(1, (pos // psize)[:, None])[:, 0].long()
-        _pool_write(layer_cache, k_new[:, 0], v_new[:, 0], (pg, pos % psize))
+        _pool_write(layer_cache, k_new[:, 0], v_new[:, 0], page_table,
+                    positions=positions)
     with host_span("fwd.attn"):
         g = cfg.n_heads // cfg.n_kv_heads
         hd = q.shape[-1]

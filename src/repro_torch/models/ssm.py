@@ -29,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels.ref import quantize_kv_many
 from . import attention as A
 from . import layers as L
 
@@ -309,7 +310,7 @@ def _state_items(node):
 
 
 def _quantize_leaves(state, group_of):
-    """Every leaf of ``state`` quantized (``attention.quantize_kv``, the
+    """Every leaf of ``state`` quantized (``kernels.ref.quantize_kv``, the
     group ``group_of(path)`` each) with one encode over all the leaves;
     returns the codes/scales tree in sorted key order."""
     paths, leaves = [], []
@@ -323,7 +324,7 @@ def _quantize_leaves(state, group_of):
                 leaves.append(val)
 
     walk(state, ())
-    quantized = A.quantize_kv_many(leaves, [group_of(p) for p in paths])
+    quantized = quantize_kv_many(leaves, [group_of(p) for p in paths])
     out: dict = {}
     for path, (codes, scale) in zip(paths, quantized):
         node = out

@@ -42,6 +42,7 @@ from .. import resolve_device
 from ..core.formats import torch_dtype
 from ..core.qat import quantize_tree
 from ..kernels.ops import PackedTensor, dequant
+from ..kernels.ref import kv_scale_cols
 from ..obs import host_span
 from ..parallel.sharding import batch_sum, gather
 from . import attention as A
@@ -512,7 +513,7 @@ def _one_kv(cfg, n: int, batch: int, max_len: int, quantized: bool,
     hd = cfg.resolved_head_dim
     shape = (n, batch, max_len, cfg.n_kv_heads, hd)
     if quantized:
-        gs = A.kv_scale_cols(hd, kv_group)
+        gs = kv_scale_cols(hd, kv_group)
         sshape = shape[:-1] + (gs,)
         return {"k_codes": torch.zeros(shape, dtype=torch.uint8, device=device),
                 "v_codes": torch.zeros(shape, dtype=torch.uint8, device=device),

@@ -21,6 +21,7 @@ import numpy as np
 from ..core.policy import PrecisionPolicy, flatten_with_paths
 from ..core.qat import quantize_tree
 from ..kernels.ops import pack_tensor
+from ..kernels.ref import quantize_kv
 from . import attention as A
 from . import ssm as S
 from . import transformer as T
@@ -86,8 +87,8 @@ def quantize_cache(cache, kv_group: Optional[int] = None,
     (``ssm.quantize_state``: the slab layout, which decode round-trips
     through posit8 every step)."""
     if "k" in cache and "v" in cache and not isinstance(cache["k"], dict):
-        kc, ks = A.quantize_kv(cache["k"], kv_group)
-        vc, vs = A.quantize_kv(cache["v"], kv_group)
+        kc, ks = quantize_kv(cache["k"], kv_group)
+        vc, vs = quantize_kv(cache["v"], kv_group)
         return {"k_codes": kc, "k_scale": ks, "v_codes": vc, "v_scale": vs}
     if quantize_state and ("h" in cache or "tm_state" in cache):
         return S.quantize_state(cache, kv_group)

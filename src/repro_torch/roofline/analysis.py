@@ -171,7 +171,7 @@ def decode_kv_bytes(cfg: ModelConfig, batch: int, max_len: int, pos: int,
     The per-step model behind ``benchmarks/bench_decode.py``; it uses the
     same attention-layer count as :func:`min_traffic_bytes`.
     """
-    from ..models.attention import kv_scale_cols
+    from ..kernels.ref import kv_scale_cols
     n_attn = cfg.n_attn_layers
     hd = cfg.resolved_head_dim
     rows = n_attn * batch * cfg.n_kv_heads        # per cached token

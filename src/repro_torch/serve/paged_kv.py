@@ -63,7 +63,7 @@ import torch
 
 from .. import resolve_device
 from ..models import transformer as _transformer
-from ..models.attention import kv_scale_cols
+from ..kernels.ref import kv_scale_cols
 
 __all__ = ["PARKING_PAGE", "PARKING_SLAB", "PagedKVPool",
            "paged_kv_bytes_per_step", "page_handoff_bytes",

@@ -174,7 +174,8 @@ def test_kernel_table_pairs_every_wrapper():
     reference's fallback the table names exists.  No port wrapper is
     left out of the table (the route counters ``wide_route``,
     ``stream_route`` and ``wgmma_route`` count launches of one route of a
-    wrapper beside its own count)."""
+    wrapper beside its own count; ``paged_kv_write`` ports no Pallas
+    kernel)."""
     import importlib
     table = _kernel_table()
     assert len(table) == 6
@@ -207,6 +208,14 @@ def test_kernel_table_pairs_every_wrapper():
                         node.targets[0], ast.Attribute) and \
                         node.targets[0].attr == "launches":
                     counted.add((fn, node.targets[0].value.id))
+    # kernels with no Pallas counterpart stay out of the table; each
+    # one's source says so
+    no_tpu = {("kv_write.py", "paged_kv_write")}
+    for fn, _ in no_tpu:
+        with open(os.path.join(ROOT, "src", "repro_torch", "csrc",
+                               fn[:-3] + ".cu")) as f:
+            assert "Replaces no TPU kernel" in f.read(), fn
     assert counted - {("flash_decode.py", "wide_route"),
                       ("rmmec_matmul.py", "stream_route"),
-                      ("rmmec_matmul.py", "wgmma_route")} == wrappers
+                      ("rmmec_matmul.py", "wgmma_route")} - no_tpu \
+        == wrappers

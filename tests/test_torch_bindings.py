@@ -11,10 +11,10 @@ import re
 
 import pytest
 
-from repro_torch.kernels import _build, codec, flash_decode, quire_dot, \
-    rmmec_matmul
+from repro_torch.kernels import _build, codec, flash_decode, kv_write, \
+    quire_dot, rmmec_matmul
 
-TABLES = {**codec._ARGTYPES, **flash_decode._ARGTYPES,
+TABLES = {**codec._ARGTYPES, **flash_decode._ARGTYPES, **kv_write._ARGTYPES,
           **quire_dot._ARGTYPES, **rmmec_matmul._ARGTYPES}
 CTYPE = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
          "float": ctypes.c_float}
